@@ -239,14 +239,28 @@ def test_crc_many_matches_reference(corpus):
          jrx.crc_psdu_many_graph(clear, n))
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("viterbi_window", 1024), ("viterbi_metric", "int16"),
-    ("viterbi_radix", 4), ("batched_acquire", False),
-    ("sco_track", True), ("fused_demap", True)])
-def test_unported_knobs_raise(knob, value):
+@pytest.mark.parametrize("entry,kwargs", [
+    pytest.param("receive_many", {"viterbi_window": 1024},
+                 id="viterbi_window-1024"),
+    pytest.param("receive_many", {"viterbi_metric": "int16"},
+                 id="viterbi_metric-int16"),
+    pytest.param("receive_many", {"viterbi_radix": 4}, id="viterbi_radix-4"),
+    pytest.param("receive_many", {"fused_demap": True, "viterbi_radix": 4},
+                 id="fused_demap-radix4"),
+    pytest.param("receive", {"fxp": True}, id="receive-fxp"),
+    pytest.param("receive", {"viterbi_metric": "int16"},
+                 id="receive-viterbi_metric-int16"),
+    pytest.param("receive", {"viterbi_window": 1024},
+                 id="receive-viterbi_window-1024"),
+    pytest.param("receive", {"fused_demap": True, "viterbi_radix": 4},
+                 id="receive-fused_demap-radix4"),
+    pytest.param("receive", {"geometry": object()}, id="receive-geometry")])
+def test_unported_knobs_raise(entry, kwargs):
+    fn = framebatch.receive_many if entry == "receive_many" else rx.receive
+    capture = np.zeros((600, 2), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        framebatch.receive_many([np.zeros((600, 2), np.float32)],
-                                device="cpu", **{knob: value})
+        fn([capture] if entry == "receive_many" else capture,
+           device="cpu", **kwargs)
 
 
 def test_default_knob_values_run(corpus):

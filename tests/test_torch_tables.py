@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 
 from ziria_tpu.ops import coding, cplx, crc, demap, interleave, modulate, \
-    ofdm, scramble, viterbi
+    ofdm, scramble, viterbi, viterbi_pallas
 from ziria_tpu_torch.tables import reference_tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _MODS = {"coding": coding, "cplx": cplx, "crc": crc, "demap": demap,
          "interleave": interleave, "modulate": modulate, "ofdm": ofdm,
-         "scramble": scramble, "viterbi": viterbi}
+         "scramble": scramble, "viterbi": viterbi,
+         "viterbi_pallas": viterbi_pallas}
 
 TABLES = reference_tables()
 
@@ -38,8 +39,25 @@ def test_table_set_covers_the_receive_path():
                    "ops.cplx._dft_mats", "ops.ofdm._PREAMBLE",
                    "ops.ofdm.PILOT_POLARITY", "ops.interleave.",
                    "ops.coding.PUNCTURE_KEEP", "ops.demap._NORM",
-                   "ops.crc._TABLE", "ops.scramble._SEED_TABLE"):
+                   "ops.crc._TABLE", "ops.scramble._SEED_TABLE",
+                   "ops.demap.demap_bit_layout",
+                   "ops.interleave.deinterleave_slots",
+                   "ops.viterbi_pallas._front_tables",
+                   "ops.viterbi_pallas.mixed_front_tables"):
         assert any(k.startswith(prefix) for k in TABLES), prefix
+
+
+def test_fused_tables_cover_every_rate():
+    # every rate's known-rate slot tables, both banks of the mixed
+    # front, and the per-bit and per-slot descriptors they come from
+    assert sum(k.startswith("ops.viterbi_pallas._front_tables(")
+               for k in TABLES) == 8 * 3
+    assert sum(k.startswith("ops.demap.demap_bit_layout(")
+               for k in TABLES) == 4 * 3
+    assert sum(k.startswith("ops.interleave.deinterleave_slots(")
+               for k in TABLES) == 4 * 2
+    assert "ops.viterbi_pallas.mixed_front_tables()[0]" in TABLES
+    assert "ops.viterbi_pallas.mixed_front_tables()[1]" in TABLES
 
 
 @pytest.mark.parametrize("key", sorted(TABLES))

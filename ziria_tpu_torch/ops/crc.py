@@ -41,12 +41,25 @@ def _crc32_scan(data: torch.Tensor, n_bytes: torch.Tensor,
     return crc ^ 0xFFFFFFFF
 
 
-def append_crc32(bits: torch.Tensor) -> torch.Tensor:
-    """Append the 32-bit FCS to a bit stream (n,) (the TX crc block)."""
+def crc32_bits(bits: torch.Tensor) -> torch.Tensor:
+    """CRC-32 of a bit stream (n,), n a multiple of 8 (LSB-first per
+    byte): its 32 FCS bits in transmission order."""
     data = bits_to_bytes(bits)[None]
     n = data.shape[1]
     crc = _crc32_scan(data, torch.full((1,), n, device=bits.device), n)
-    return torch.cat([bits.to(torch.uint8), uint_to_bits(crc[0], 32)])
+    return uint_to_bits(crc[0], 32)
+
+
+def append_crc32(bits: torch.Tensor) -> torch.Tensor:
+    """Append the 32-bit FCS to a bit stream (n,) (the TX crc block)."""
+    return torch.cat([bits.to(torch.uint8), crc32_bits(bits)])
+
+
+def check_crc32(bits: torch.Tensor) -> torch.Tensor:
+    """True (a 0-d bool tensor) iff the trailing 32 bits of a bit
+    stream are the FCS of the rest."""
+    bits = bits.to(torch.uint8)
+    return (crc32_bits(bits[:-32]) == bits[-32:]).all()
 
 
 def check_crc32_masked(bits: torch.Tensor, n_bits: torch.Tensor):

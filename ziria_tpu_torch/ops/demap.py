@@ -37,3 +37,25 @@ def demap(syms: torch.Tensor, n_bpsc: int, gain=None) -> torch.Tensor:
     if gain is not None:
         bits = bits * gain[..., None]
     return bits.reshape(syms.shape[:-2] + (syms.shape[-2] * n_bpsc,))
+
+
+def demap_bit_layout(n_bpsc: int):
+    """Per-bit descriptors of :func:`demap` for the fused front end:
+    for bit b of one subcarrier's n_bpsc LLRs, ``comp[b]`` is its
+    component (0 = I, 1 = Q), ``lev[b]`` its level formula (0: x;
+    1: amp - |x|; 2: 2 - ||x| - 4|) and ``amp[b]`` the level-1
+    amplitude. Returns (comp, lev, amp) as int32, int32, float32."""
+    if n_bpsc == 1:
+        comp, lev, amp = [0], [0], [0.0]
+    elif n_bpsc == 2:
+        comp, lev, amp = [0, 1], [0, 0], [0.0, 0.0]
+    elif n_bpsc == 4:
+        comp, lev, amp = [0, 0, 1, 1], [0, 1, 0, 1], [0.0, 2.0, 0.0, 2.0]
+    elif n_bpsc == 6:
+        comp = [0, 0, 0, 1, 1, 1]
+        lev = [0, 1, 2, 0, 1, 2]
+        amp = [0.0, 4.0, 2.0, 0.0, 4.0, 2.0]
+    else:
+        raise ValueError(f"unsupported n_bpsc {n_bpsc}")
+    return (np.asarray(comp, np.int32), np.asarray(lev, np.int32),
+            np.asarray(amp, np.float32))

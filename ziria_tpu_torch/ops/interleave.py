@@ -31,6 +31,18 @@ def deinterleave_perm(n_cbps: int, n_bpsc: int) -> np.ndarray:
     return inv
 
 
+@lru_cache(maxsize=None)
+def deinterleave_slots(n_cbps: int, n_bpsc: int):
+    """(subcarrier, bit) source of each deinterleaved soft value of one
+    symbol: position q reads demapped LLR r = deinterleave_perm[q],
+    which demap's (..., 48 * n_bpsc) layout holds for subcarrier
+    r // n_bpsc, bit r % n_bpsc. Returns (sub, bit) int32 arrays of
+    length n_cbps."""
+    perm = deinterleave_perm(n_cbps, n_bpsc)
+    return (perm // n_bpsc).astype(np.int32), \
+        (perm % n_bpsc).astype(np.int32)
+
+
 def interleave(bits: torch.Tensor, n_cbps: int, n_bpsc: int):
     """Interleave whole symbols: (..., m*n_cbps) -> same shape."""
     return _permute(bits, interleave_perm(n_cbps, n_bpsc), n_cbps)

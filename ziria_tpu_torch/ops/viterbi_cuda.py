@@ -65,9 +65,19 @@ def _lib():
     from ziria_tpu_torch import cuda_build
 
     lib = cuda_build.library("viterbi")
-    sig = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.ziria_acs_f32, lib.ziria_traceback):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    sigs = (
+        (lib.ziria_acs_f32, [ptr] * 3 + [i32] * 3 + [ptr]),
+        (lib.ziria_traceback, [ptr] * 3 + [i32] * 3 + [ptr]),
+        # sym, gain, nbits, ridx, bank, ndbps, norms, dec, metrics,
+        # B, n_sym, Tp, device, stream (ops/viterbi_fused)
+        (lib.ziria_fused_acs_mixed, [ptr] * 9 + [i32] * 4 + [ptr]),
+        # sym, gain, nbits, table, dec, metrics, n_dbps, norm, B,
+        # n_sym, Tp, cadence, device, stream
+        (lib.ziria_fused_acs_rate,
+         [ptr] * 6 + [i32, ctypes.c_float] + [i32] * 5 + [ptr]),
+    )
+    for fn, sig in sigs:
         fn.argtypes = sig
         fn.restype = ctypes.c_int
     return lib
@@ -99,13 +109,15 @@ def _coeffs(device):
     return a[:, 0], a[:, 1], b[:, 0], b[:, 1]
 
 
-def acs_plain(llr: torch.Tensor):
+def acs_plain(llr: torch.Tensor, renorm: int = RENORM):
     """The ACS sweep in plain PyTorch: llr (B, Tp, 2) float32, Tp a
-    multiple of 64 -> (decisions (B, Tp, 8) uint8, metrics (B, 64)
-    float32). The same arithmetic, step for step, as the kernel."""
+    multiple of `renorm` -> (decisions (B, Tp, 8) uint8, metrics (B, 64)
+    float32), renormalizing once every `renorm` steps. The same
+    arithmetic, step for step, as the kernel (``acs_f32_kernel`` at
+    the default 64; the fused kernels at their own cadences)."""
     B, Tp = llr.shape[0], llr.shape[1]
-    if Tp % RENORM:
-        raise ValueError(f"acs: Tp={Tp} is not a multiple of {RENORM}")
+    if Tp % renorm:
+        raise ValueError(f"acs: Tp={Tp} is not a multiple of {renorm}")
     dev = llr.device
     a0, a1, b0, b1 = _coeffs(dev)
     ev_idx = 2 * (torch.arange(N_STATES, device=dev) % 32)
@@ -121,7 +133,7 @@ def acs_plain(llr: torch.Tensor):
         d = c1 > c0
         m = torch.where(d, c1, c0)
         decs[:, t] = d
-        if (t + 1) % RENORM == 0:
+        if (t + 1) % renorm == 0:
             m = m - m.amax(dim=1, keepdim=True)
     weights = 1 << torch.arange(8, dtype=torch.int32, device=dev)
     packed = (decs.view(B, Tp, 8, 8).to(torch.int32) * weights).sum(-1)
