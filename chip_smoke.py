@@ -10,41 +10,60 @@ Phases, each printing one JSON line:
 2. build: compiles every CUDA source under ziria_tpu_torch/csrc/ with
    nvcc for sm_90a, one nvcc per source, all started together;
 3. kernel_parity: every kernel against its plain PyTorch version on the
-   card: the ACS and traceback kernels at B=128, T=8192 on random soft
-   inputs with an all-erasure lane and erasure tails; the rate-switched
-   fused kernel at B=128, 64 symbols, all 8 rates, random bit counts
-   with an all-erasure lane and a lane ending inside a symbol; the
-   known-rate fused kernel at each rate, B=128, the same. Decisions,
-   final metrics (as int32 bit patterns) and traceback bits bitwise
-   equal;
+   card, bitwise (decisions, final metrics as int32 bit patterns,
+   traceback bits): the ACS kernel of each decode mode (float32, int16
+   and int8 metrics at radix 2 and 4) and the traceback (float32 and
+   int32 metrics) at B=128, T=8192 on random soft inputs with an
+   all-erasure lane and erasure tails, quantized for the integer modes,
+   with an int8 lane of long +-15 runs that hits the -128 rail; the
+   rate-switched fused kernel at B=128, 64 symbols, all 8 rates, random
+   bit counts with an all-erasure lane and a lane ending inside a
+   symbol; the known-rate fused kernel at each rate, B=128, the same;
+   both fused kernels at radix 2 and 4. Each radix-4 kernel also equals
+   its radix-2 twin bitwise;
 4. end_to_end: 128 captures, 16 at each of the 8 rates, each a
    1000-byte PSDU (996 random bytes + FCS) behind a random offset, with
    a random CFO and AWGN at 25 dB, made by the port's TX and a seeded
-   numpy channel. Five paths, each with every launch count zeroed just
-   before it and read just after:
+   numpy channel. Each path runs with every launch count zeroed just
+   before it and read just after, and must launch exactly the kernels
+   named:
    a. ``receive_many(check_fcs=True)``: ACS and traceback kernels;
-   b. ``receive_many(check_fcs=True, fused_demap=True)``: one
-      rate-switched fused launch, no ACS launch, one traceback; field
-      for field equal to (a);
-   c. ``receive_many(check_fcs=True, batched_acquire=False,
-      sco_track=True)``;
+   b. ``fused_demap=True``: one rate-switched fused launch, one
+      traceback; field for field equal to (a);
+   c. ``batched_acquire=False, sco_track=True``: ACS and traceback;
    d. one capture per rate through ``rx.receive(check_fcs=True,
       fused_demap=True)``: 8 known-rate fused launches, equal to (a);
    e. the same 8 through the default ``rx.receive`` (the scan decoder,
-      no kernel), equal again.
-   Every lane must come back ok with its rate, length, payload bits
-   and a good FCS;
-5. timing: ``receive_many`` unfused and fused in turns (batch ms,
-   frames/s, samples/s, peak device memory); CUDA-event times of each
-   step of both decode paths; per-capture ``receive`` ms per rate,
-   fused and default; then each kernel at the main path's own inputs
-   beside its plain version (held bitwise equal there too) and its
-   bound.
+      no kernel), equal again;
+   f. ``viterbi_radix=4``: one radix-4 ACS launch; equal to (a);
+   g. ``fused_demap=True, viterbi_radix=4``: one radix-4 rate-switched
+      fused launch; equal to (a);
+   h. ``viterbi_metric="int16"`` at radix 2 and 4: one int16 ACS launch
+      each, the two equal field for field;
+   i. ``viterbi_metric="int8"`` at radix 2 and 4: the same with int8;
+   j. ``viterbi_window=1024``: one ACS launch over the 128 x 108 window
+      lanes; equal to (a);
+   k. the 8 per-rate captures through ``rx.receive`` with
+      ``viterbi_radix=4`` (8 radix-4 ACS launches), ``viterbi_metric=
+      "int8"`` (8 int8 ACS launches), ``fused_demap=True,
+      viterbi_radix=4`` (8 radix-4 known-rate fused launches) and
+      ``viterbi_metric="int16"`` (the int16 scan, no kernel); each
+      equal to (a)'s lanes.
+   Every lane of every path must come back ok with its rate, length,
+   payload bits and a good FCS;
+5. timing: ``receive_many`` in every decode mode, the modes in turns
+   (batch ms, frames/s, samples/s, peak device memory); CUDA-event
+   times of each step of the default and fused decode paths and of
+   each mode's decode step (quantize, window cut, ACS); per-capture
+   ``receive`` ms per rate, fused and default; then each kernel at the
+   main path's own inputs (and the ACS at the window path's) beside
+   its plain version (held bitwise equal there too) and its bound.
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Any
-failed check raises, and the script exits non-zero without that line.
-It imports nothing of JAX or of the JAX package.
+Then a ``{"kernels": [...]}`` line, the script's wall time, the
+nvidia-smi name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``. Any failed check raises, and the script exits
+non-zero without that line. It imports nothing of JAX or of the JAX
+package.
 """
 
 import argparse
@@ -61,13 +80,40 @@ PSDU_BYTES = 1000            # 996 payload bytes + 4 FCS bytes
 SNR_DB = 25.0
 PARITY_T = 8192
 PARITY_SYM = 64              # fused kernels' parity geometry (symbols)
+WINDOW = 1024                # the windowed path's window
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# float32 operations/s outside the tensor cores (integer adds are
+# counted at the same rate)
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
+# the ACS modes: (metric dtype, radix) by launch key
+MODES = {"acs": ("float32", 2), "acs_r4": ("float32", 4),
+         "acs_i16": ("int16", 2), "acs_i16_r4": ("int16", 4),
+         "acs_i8": ("int8", 2), "acs_i8_r4": ("int8", 4)}
+# the CUDA instance behind each launch key (csrc/viterbi.cu) and the
+# Pallas kernel it replaces (ziria_tpu/ops/viterbi_pallas.py)
+KERNELS = {
+    "acs": ("acs_kernel<F32, 2>", "ziria_tpu/ops/viterbi_pallas.py:332"),
+    "traceback": ("traceback_kernel<float|int>",
+                  "ziria_tpu/ops/viterbi_pallas.py:517"),
+    "fused_mixed": ("fused_acs_mixed_kernel<2>",
+                    "ziria_tpu/ops/viterbi_pallas.py:1174"),
+    "fused_rate": ("fused_acs_rate_kernel<2>",
+                   "ziria_tpu/ops/viterbi_pallas.py:893"),
+    "acs_r4": ("acs_kernel<F32, 4>", "ziria_tpu/ops/viterbi_pallas.py:369"),
+    "acs_i16": ("acs_kernel<I16, 2>", "ziria_tpu/ops/viterbi_pallas.py:402"),
+    "acs_i16_r4": ("acs_kernel<I16, 4>",
+                   "ziria_tpu/ops/viterbi_pallas.py:447"),
+    "acs_i8": ("acs_kernel<I8, 2>", "ziria_tpu/ops/viterbi_pallas.py:447"),
+    "acs_i8_r4": ("acs_kernel<I8, 4>", "ziria_tpu/ops/viterbi_pallas.py:447"),
+    "fused_mixed_r4": ("fused_acs_mixed_kernel<4>",
+                       "ziria_tpu/ops/viterbi_pallas.py:1174"),
+    "fused_rate_r4": ("fused_acs_rate_kernel<4>",
+                      "ziria_tpu/ops/viterbi_pallas.py:893"),
+}
 
 
 def emit(obj) -> None:
@@ -101,6 +147,16 @@ def cuda_ms(fn, reps: int = 1) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cuda_timed(fn):
+    """(result, milliseconds) of one `fn()` under CUDA events."""
+    out = {}
+
+    def run():
+        out["r"] = fn()
+    ms = cuda_ms(run)
+    return out["r"], ms
 
 
 def host_ms(fn):
@@ -167,36 +223,29 @@ def fused_parity_inputs(rng, ndbps, n_sym):
     return data, gain, nbits
 
 
-def run_both(torch, vc, llr):
-    """Kernels and plain versions on the same card inputs, held bitwise
-    equal; returns the largest absolute difference of the ACS outputs
-    (decisions, metrics) and of the traceback bits."""
-    dec, met = vc.acs(llr)
-    bits = vc.traceback(dec, met)
-    dec_p, met_p = vc.acs_plain(llr)
-    bits_p = vc.traceback_plain(dec, met)
-    torch.cuda.synchronize()
-    check(torch.equal(dec, dec_p), "ACS decisions differ from plain")
-    check(torch.equal(met.view(torch.int32), met_p.view(torch.int32)),
-          "ACS final metrics are not bitwise equal to plain")
-    check(torch.equal(bits, bits_p), "traceback bits differ from plain")
-    err_acs = max(float((met - met_p).abs().max()),
-                  float((dec.int() - dec_p.int()).abs().max()))
-    err_tb = float((bits.int() - bits_p.int()).abs().max())
-    return err_acs, err_tb
+def max_err(torch, got, want) -> float:
+    """Largest absolute difference of two outputs (ACS pairs or bits)."""
+    if isinstance(got, tuple):
+        return max(max_err(torch, g, w) for g, w in zip(got, want))
+    return float((got.double() - want.double()).abs().max())
 
 
 def same_acs(torch, got, want, what: str) -> float:
-    """Fused kernel outputs against their plain version's: decisions and
-    final metrics bitwise equal. Returns the largest absolute
-    difference."""
+    """ACS outputs (decisions, final metrics) against another run's:
+    bitwise equal. Returns the largest absolute difference."""
     (dec, met), (dec_p, met_p) = got, want
     torch.cuda.synchronize()
-    check(torch.equal(dec, dec_p), f"{what}: decisions differ from plain")
-    check(torch.equal(met.view(torch.int32), met_p.view(torch.int32)),
-          f"{what}: final metrics are not bitwise equal to plain")
-    return max(float((met - met_p).abs().max()),
-               float((dec.int() - dec_p.int()).abs().max()))
+    check(torch.equal(dec, dec_p), f"{what}: decisions differ")
+    check(met.dtype == met_p.dtype
+          and torch.equal(met.view(torch.int32), met_p.view(torch.int32)),
+          f"{what}: final metrics are not bitwise equal")
+    return max_err(torch, got, want)
+
+
+def same_bits(torch, got, want, what: str) -> float:
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{what}: bits differ")
+    return max_err(torch, got, want)
 
 
 def bound(nbytes, nops):
@@ -208,14 +257,22 @@ def bound(nbytes, nops):
 
 def acs_ops(b, tp, cadence):
     """ACS operations: per state and step 4 adds, 1 compare, 1 select,
-    plus the renorm's max and subtract every `cadence` steps."""
+    plus the renorm's max and subtract every `cadence` steps (radix 4
+    does the same decode; integer adds count as float32 ones)."""
     return b * tp * 64 * 6 + b * (tp // cadence) * 64 * 2
+
+
+def acs_bytes(b, tp, in_bytes):
+    """ACS bytes: soft pairs in (`in_bytes` per value), one 8-byte
+    decision word per step and 64 4-byte metrics out."""
+    return b * tp * 2 * in_bytes + b * tp * 8 + b * 64 * 4
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
     args = ap.parse_args(argv)
+    wall0 = time.perf_counter()
 
     import torch
 
@@ -257,41 +314,65 @@ def main(argv=None) -> int:
     # ---- 3. kernel parity
     rng = np.random.default_rng(args.seed)
     llr = torch.from_numpy(parity_inputs(rng, B, PARITY_T)).to(dev)
-    err_acs, err_tb = run_both(torch, vc, llr)
-    del llr
-
-    def fused_parity(got, want, what):
-        err = same_acs(torch, got, want, what)
-        bits, bits_p = vc.traceback(*got), vc.traceback_plain(*want)
-        torch.cuda.synchronize()
-        check(torch.equal(bits, bits_p), f"{what}: bits differ from plain")
-        return err
+    parity = {}
+    ref2 = {}
+    for key, (md, radix) in MODES.items():
+        x = llr if md == "float32" else vc._quantize_for(md, llr)
+        if md == "int8":
+            x[5] = 15                            # long +-15 runs: the rail
+            x[5, PARITY_T // 4: PARITY_T // 2] = -15
+        got = vc.acs(x, md, radix)
+        err = same_acs(torch, got, vc.acs_plain(x, metric_dtype=md,
+                                                radix=radix), key)
+        if md == "int8":
+            check(bool((got[1][5] == -128).any()),
+                  "int8 parity lane did not reach the -128 rail")
+        if radix == 2:
+            ref2[md] = got
+        else:
+            same_acs(torch, got, ref2[md], f"{key} against radix 2")
+        bits = vc.traceback(*got)
+        err_tb = same_bits(torch, bits, vc.traceback_plain(*got),
+                           f"traceback after {key}")
+        parity[key] = err
+        parity["traceback"] = max(parity.get("traceback", 0.0), err_tb)
+    del llr, ref2, got, x, bits
 
     ridx = np.arange(B) % 8
     ndbps = [RATES[RATE_MBPS_ORDER[r]].n_dbps for r in ridx]
     d, g, nb = (torch.from_numpy(a).to(dev)
                 for a in fused_parity_inputs(rng, ndbps, PARITY_SYM))
-    err_mixed = fused_parity(vf.fused_acs_mixed(d, g, ridx, nb),
-                             vf.fused_acs_mixed_plain(d, g, ridx, nb),
-                             "fused_acs_mixed_kernel")
-    err_rate = {}
+    twin = None
+    for radix, key in ((2, "fused_mixed"), (4, "fused_mixed_r4")):
+        got = vf.fused_acs_mixed(d, g, ridx, nb, radix)
+        parity[key] = same_acs(torch, got, vf.fused_acs_mixed_plain(
+            d, g, ridx, nb, radix), key)
+        same_bits(torch, vc.traceback(*got), vc.traceback_plain(*got), key)
+        if twin is not None:
+            same_acs(torch, got, twin, f"{key} against radix 2")
+        twin = got
     for m in RATE_MBPS_ORDER:
         rate = RATES[m]
         n_sym = -(-PARITY_SYM // vf.symbols_per_block(rate)) * \
             vf.symbols_per_block(rate)
         d, g, nb = (torch.from_numpy(a).to(dev) for a in
                     fused_parity_inputs(rng, [rate.n_dbps] * B, n_sym))
-        err_rate[m] = fused_parity(vf.fused_acs_rate(d, g, rate, nb),
-                                   vf.fused_acs_rate_plain(d, g, rate, nb),
-                                   f"fused_acs_rate_kernel at {m} Mbps")
-    del d, g, nb
+        twin = None
+        for radix, key in ((2, "fused_rate"), (4, "fused_rate_r4")):
+            what = f"{key} at {m} Mbps"
+            got = vf.fused_acs_rate(d, g, rate, nb, radix)
+            err = same_acs(torch, got, vf.fused_acs_rate_plain(
+                d, g, rate, nb, radix), what)
+            same_bits(torch, vc.traceback(*got), vc.traceback_plain(*got),
+                      what)
+            parity[key] = max(parity.get(key, 0.0), err)
+            if twin is not None:
+                same_acs(torch, got, twin, f"{what} against radix 2")
+            twin = got
+    del d, g, nb, got, twin
     emit({"phase": "kernel_parity", "B": B, "T": PARITY_T,
-          "fused_symbols": PARITY_SYM, "acs_equal": True,
-          "traceback_equal": True, "fused_mixed_equal": True,
-          "fused_rate_equal": True,
-          "max_abs_err": {"acs": err_acs, "traceback": err_tb,
-                          "fused_mixed": err_mixed,
-                          "fused_rate": max(err_rate.values())}})
+          "fused_symbols": PARITY_SYM, "equal": "bitwise to plain; "
+          "radix 4 bitwise to radix 2", "max_abs_err": parity})
 
     # ---- 4. end to end: each path with the launch counts zeroed just
     # before it and read just after
@@ -304,10 +385,7 @@ def main(argv=None) -> int:
         vc.reset_launches()
         vf.reset_launches()
         out, ms = host_ms(fn)
-        launches = {"acs_f32_kernel": vc.LAUNCHES["acs"],
-                    "traceback_kernel": vc.LAUNCHES["traceback"],
-                    "fused_acs_mixed_kernel": vf.LAUNCHES["fused_mixed"],
-                    "fused_acs_rate_kernel": vf.LAUNCHES["fused_rate"]}
+        launches = {**vc.LAUNCHES, **vf.LAUNCHES}
         return out, launches, ms, torch.cuda.max_memory_allocated(dev)
 
     def wrong(results, idx):
@@ -323,42 +401,49 @@ def main(argv=None) -> int:
                    and np.array_equal(x.psdu_bits, y.psdu_bits)
                    for x, y in zip(a, b))
 
-    paths = {}
+    paths, results = {}, {}
     every = list(range(B))
     one_per_rate = list(range(8))            # capture k is at rate k % 8
-    res, launches, ms, peak = counted(
-        lambda: framebatch.receive_many(caps, check_fcs=True, device=dev))
-    paths["receive_many"] = dict(launches=launches, first_call_ms=ms,
-                                 peak_mem_bytes=peak, failed=wrong(res, every))
-    check(launches["acs_f32_kernel"] > 0 and launches["traceback_kernel"] > 0,
-          f"receive_many: a kernel of the path was not launched: {launches}")
-    res_f, launches, ms, peak = counted(
-        lambda: framebatch.receive_many(caps, check_fcs=True, device=dev,
-                                        fused_demap=True))
-    paths["receive_many_fused"] = dict(
-        launches=launches, first_call_ms=ms, peak_mem_bytes=peak,
-        failed=wrong(res_f, every), equal_to_unfused=same_fields(res_f, res))
-    check(launches["fused_acs_mixed_kernel"] == 1
-          and launches["acs_f32_kernel"] == 0
-          and launches["traceback_kernel"] == 1,
-          f"receive_many(fused_demap=True) launches: {launches}")
-    check(paths["receive_many_fused"]["equal_to_unfused"],
-          "receive_many(fused_demap=True) differs from the unfused run")
-    res_p, launches, ms, peak = counted(
-        lambda: framebatch.receive_many(caps, check_fcs=True, device=dev,
-                                        batched_acquire=False,
-                                        sco_track=True))
-    paths["receive_many_percapture_sco"] = dict(
-        launches=launches, first_call_ms=ms, peak_mem_bytes=peak,
-        failed=wrong(res_p, every))
-    check(launches["acs_f32_kernel"] > 0 and launches["traceback_kernel"] > 0,
-          f"receive_many(batched_acquire=False, sco_track=True): {launches}")
+
+    def path(name, fn, idx, want, equal_to=None):
+        """Run one path counted; check every lane and that exactly the
+        `want` launch counts are non-zero."""
+        res, launches, ms, peak = counted(fn)
+        results[name] = res
+        paths[name] = dict(launches=launches, first_call_ms=ms,
+                           peak_mem_bytes=peak, failed=wrong(res, idx))
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"{name}: launches {launches}, want {want}")
+        if equal_to is not None:
+            ref = results[equal_to]
+            ref = ref if len(ref) == len(res) else [ref[k] for k in idx]
+            paths[name]["equal_to"] = equal_to
+            check(same_fields(res, ref),
+                  f"{name} differs field for field from {equal_to}")
+
+    def many(**knobs):
+        return lambda: framebatch.receive_many(caps, check_fcs=True,
+                                               device=dev, **knobs)
+
+    def each(**knobs):
+        def run():
+            return [rx.receive(caps[k], check_fcs=True, device=dev, **knobs)
+                    for k in one_per_rate]
+        return run
+
+    eight = len(one_per_rate)
+    path("receive_many", many(), every, {"acs": 1, "traceback": 1})
+    path("receive_many_fused", many(fused_demap=True), every,
+         {"fused_mixed": 1, "traceback": 1}, "receive_many")
+    path("receive_many_percapture_sco",
+         many(batched_acquire=False, sco_track=True), every,
+         {"acs": 1, "traceback": 1})
     per_capture_ms = {}
     for fused in (True, False):
         name = "receive_fused" if fused else "receive"
         times = {}
 
-        def each():
+        def timed_each(fused=fused, times=times):
             out = []
             for k in one_per_rate:
                 r, times[rates[k]] = host_ms(
@@ -366,48 +451,71 @@ def main(argv=None) -> int:
                                            fused_demap=fused, device=dev))
                 out.append(r)
             return out
-        res_r, launches, ms, peak = counted(each)
+        path(name, timed_each, one_per_rate,
+             {"fused_rate": eight, "traceback": eight} if fused else {},
+             "receive_many")
         per_capture_ms[name] = times
-        paths[name] = dict(
-            launches=launches, peak_mem_bytes=peak,
-            failed=wrong(res_r, one_per_rate),
-            equal_to_receive_many=same_fields(
-                res_r, [res[k] for k in one_per_rate]))
-        check(paths[name]["equal_to_receive_many"],
-              f"{name} differs from receive_many")
-        if fused:
-            check(launches["fused_acs_rate_kernel"] == len(one_per_rate)
-                  and launches["traceback_kernel"] == len(one_per_rate)
-                  and launches["acs_f32_kernel"] == 0,
-                  f"receive(fused_demap=True) launches: {launches}")
-        else:
-            check(not any(launches.values()),
-                  f"the default receive launched a kernel: {launches}")
-    correct = {p: (B if p.startswith("receive_many") else len(one_per_rate))
+    path("receive_many_radix4", many(viterbi_radix=4), every,
+         {"acs_r4": 1, "traceback": 1}, "receive_many")
+    path("receive_many_fused_radix4", many(fused_demap=True, viterbi_radix=4),
+         every, {"fused_mixed_r4": 1, "traceback": 1}, "receive_many")
+    for md, short in (("int16", "i16"), ("int8", "i8")):
+        path(f"receive_many_{md}", many(viterbi_metric=md), every,
+             {f"acs_{short}": 1, "traceback": 1})
+        path(f"receive_many_{md}_radix4",
+             many(viterbi_metric=md, viterbi_radix=4), every,
+             {f"acs_{short}_r4": 1, "traceback": 1}, f"receive_many_{md}")
+    path("receive_many_window", many(viterbi_window=WINDOW), every,
+         {"acs": 1, "traceback": 1}, "receive_many")
+    path("receive_radix4", each(viterbi_radix=4), one_per_rate,
+         {"acs_r4": eight, "traceback": eight}, "receive_many")
+    path("receive_int8", each(viterbi_metric="int8"), one_per_rate,
+         {"acs_i8": eight, "traceback": eight}, "receive_many")
+    path("receive_fused_radix4", each(fused_demap=True, viterbi_radix=4),
+         one_per_rate, {"fused_rate_r4": eight, "traceback": eight},
+         "receive_many")
+    path("receive_int16", each(viterbi_metric="int16"), one_per_rate, {},
+         "receive_many")
+    correct = {p: (B if p.startswith("receive_many") else eight)
                - len(v["failed"]) for p, v in paths.items()}
     emit({"phase": "end_to_end", "frames": B, "psdu_bytes": PSDU_BYTES,
           "snr_db": SNR_DB, "correct": correct, "paths": paths})
     for p, v in paths.items():
         check(not v["failed"], f"{p}: lanes decoded wrongly: {v['failed']}")
+    del results
 
     # ---- 5. timing
-    # receive_many unfused and fused in turns on the same card
+    # receive_many in every decode mode, the modes in turns on one card
+    modes = {"default": {}, "fused": {"fused_demap": True},
+             "radix4": {"viterbi_radix": 4},
+             "fused_radix4": {"fused_demap": True, "viterbi_radix": 4},
+             "int16": {"viterbi_metric": "int16"},
+             "int16_radix4": {"viterbi_metric": "int16", "viterbi_radix": 4},
+             "int8": {"viterbi_metric": "int8"},
+             "int8_radix4": {"viterbi_metric": "int8", "viterbi_radix": 4},
+             "window": {"viterbi_window": WINDOW}}
+    peak_of = {"default": "receive_many", "fused": "receive_many_fused",
+               "radix4": "receive_many_radix4",
+               "fused_radix4": "receive_many_fused_radix4",
+               "int16": "receive_many_int16",
+               "int16_radix4": "receive_many_int16_radix4",
+               "int8": "receive_many_int8",
+               "int8_radix4": "receive_many_int8_radix4",
+               "window": "receive_many_window"}
     reps = 3
-    total = {"unfused": 0.0, "fused": 0.0}
+    total = dict.fromkeys(modes, 0.0)
     for _ in range(reps):
-        for name, fused in (("unfused", False), ("fused", True)):
-            _out, ms = host_ms(lambda: framebatch.receive_many(
-                caps, check_fcs=True, device=dev, fused_demap=fused))
+        for name, knobs in modes.items():
+            _out, ms = host_ms(many(**knobs))
             total[name] += ms / reps
     batch = {name: {"receive_many_ms": ms, "frames_per_s": B / ms * 1e3,
                     "samples_per_s": n_samples / ms * 1e3,
-                    "peak_mem_bytes": paths["receive_many_fused" if
-                                            name == "fused" else
-                                            "receive_many"]["peak_mem_bytes"]}
+                    "peak_mem_bytes": paths[peak_of[name]]["peak_mem_bytes"]}
              for name, ms in total.items()}
 
-    # the steps of both decode paths one by one, each under CUDA events
-    ph, ph_f = {}, {}
+    # the steps of the default and fused decode paths one by one, and
+    # each mode's decode step, each under CUDA events
+    ph, ph_f, ph_m = {}, {}, {}
     with cplx.exact_fp32():
         out = {}
 
@@ -460,103 +568,166 @@ def main(argv=None) -> int:
             steps["descramble_crc"] = cuda_ms(tail)
             check(bool(out["crc"][:B].all()),
                   f"step-by-step walk ({key}) lost an FCS")
+        del out["bits"], out["crc"]
+
+        # each mode's decode step on the main path's own soft pairs
+        q = {}
+        for md in ("int16", "int8"):
+            q[md], ph_m[f"quantize_{md}"] = cuda_timed(
+                lambda md=md: vc._quantize_for(md, llr))
+        for key, (md, radix) in MODES.items():
+            x = llr if md == "float32" else q[md]
+            ph_m[key] = cuda_ms(lambda x=x, md=md, radix=radix:
+                                vc.acs(x, md, radix))
+        ph_m["fused_mixed_r4"] = cuda_ms(
+            lambda: vf.fused_acs_mixed(sym, gain, ridx, nbits, 4))
+        # the windowed decode's steps: cut the windows (as
+        # viterbi_decode_batch_windowed, with its _decode hook), the ACS
+        # and traceback over the window lanes
+        cut = {}
+
+        def hook(x):
+            cut["x"] = x
+            return torch.zeros(x.shape[:2], dtype=torch.uint8, device=dev)
+        _bits, ph_m["window_cut"] = cuda_timed(
+            lambda: vc.viterbi_decode_batch_windowed(
+                llr[:, :T], window=WINDOW, _decode=hook))
+        wllr = vc.pad_trellis(cut.pop("x"))
+        wres, ph_m["window_acs"] = cuda_timed(lambda: vc.acs(wllr))
+        ph_m["window_traceback"] = cuda_ms(lambda: vc.traceback(*wres))
     emit({"phase": "timing", "card": card, "batch": B,
           "trellis_steps": int(llr.shape[1]), "reps": reps,
+          "window": {"window": WINDOW,
+                     "overlap": vc.DEFAULT_WINDOW_OVERLAP,
+                     "lanes": int(wllr.shape[0]),
+                     "steps": int(wllr.shape[1])},
           "capture_samples": n_samples, "receive_many": batch,
-          "step_ms": {"unfused": ph, "fused": ph_f},
+          "step_ms": {"unfused": ph, "fused": ph_f, "modes": ph_m},
           "receive_ms_per_rate": per_capture_ms})
 
-    # each kernel at the main path's inputs, against its plain version
+    # each kernel at the main path's inputs, against its plain version:
+    # the plain version runs once, under CUDA events, and its output is
+    # held against the kernel's
     Bk, Tp = int(llr.shape[0]), int(llr.shape[1])
+    stats = {}
+
+    def measure(key, fn, plain, compare, nbytes, nops, shape, reps=5):
+        got = fn()
+        want, plain_ms = cuda_timed(plain)
+        err = compare(torch, got, want, f"{key} at the main path's inputs")
+        del got, want
+        b_ms, b_by = bound(nbytes, nops)
+        stats[key] = dict(max_abs_err=err, ms=cuda_ms(fn, reps=reps),
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          shape=shape)
+
+    for key, (md, radix) in MODES.items():
+        x = llr if md == "float32" else q[md]
+        measure(key, lambda x=x, md=md, radix=radix: vc.acs(x, md, radix),
+                lambda x=x, md=md, radix=radix: vc.acs_plain(
+                    x, metric_dtype=md, radix=radix),
+                same_acs, acs_bytes(Bk, Tp, 4 if md == "float32" else 2),
+                acs_ops(Bk, Tp, vc.RENORM), [Bk, Tp])
+    # traceback: 4 integer operations per step, plus the 63-compare
+    # argmax, counted at the float32 rate; float32 metrics (the default
+    # path) and int32 metrics (the int16 path's), timed
     dec, met = out["acs"]
-    err_acs, err_tb = run_both(torch, vc, llr)
-    acs_ms = cuda_ms(lambda: vc.acs(llr), reps=5)
-    tb_ms = cuda_ms(lambda: vc.traceback(dec, met), reps=5)
-    acs_plain_ms = cuda_ms(lambda: vc.acs_plain(llr))
-    tb_plain_ms = cuda_ms(lambda: vc.traceback_plain(dec, met))
-    del out["llr"], out["acs"], llr, dec, met
-    # bounds: each input read once and each output written once over the
-    # HBM rate, against the operations over the float32 rate (traceback:
-    # 4 integer operations per step, plus the 63-compare argmax, counted
-    # at the float32 rate)
-    acs_bytes = Bk * Tp * 2 * 4 + Bk * Tp * 8 + Bk * 64 * 4
-    tb_bytes = Bk * Tp * 8 + Bk * 64 * 4 + Bk * Tp
-    tb_ops = Bk * (Tp * 4 + 63)
+    measure("traceback", lambda: vc.traceback(dec, met),
+            lambda: vc.traceback_plain(dec, met), same_bits,
+            Bk * Tp * 8 + Bk * 64 * 4 + Bk * Tp, Bk * (Tp * 4 + 63),
+            [Bk, Tp])
+    dec_i, met_i = vc.acs(q["int16"], "int16", 2)
+    stats["traceback"]["int32_metrics_ms"] = cuda_ms(
+        lambda: vc.traceback(dec_i, met_i), reps=5)
+    del out["llr"], out["acs"], llr, dec, met, dec_i, met_i, q
+
+    # the window path's ACS at its own inputs (13,824 lanes of 1,280
+    # steps): the acs kernel again, reported beside the kernels line
+    w_b, w_t = int(wllr.shape[0]), int(wllr.shape[1])
+    measure("window_acs", lambda: vc.acs(wllr), lambda: vc.acs_plain(wllr),
+            same_acs, acs_bytes(w_b, w_t, 4), acs_ops(w_b, w_t, vc.RENORM),
+            [w_b, w_t])
+    del wllr, wres
 
     # the rate-switched fused kernel at receive_many(fused_demap=True)'s
     # inputs: symbols, gains, bit counts and rate rows in (ridx and the
     # 8-rate bank of (2 * 216) 16-byte slot rows, n_dbps and norms);
     # decisions and metrics out; the ACS plus the front's per-slot work
     n_sym = int(sym.shape[1])
-    got = vf.fused_acs_mixed(sym, gain, ridx, nbits)
-    want = vf.fused_acs_mixed_plain(sym, gain, ridx, nbits)
-    err_mixed = same_acs(torch, got, want, "fused_acs_mixed_kernel")
-    del got, want
-    mixed_ms = cuda_ms(lambda: vf.fused_acs_mixed(sym, gain, ridx, nbits),
-                       reps=5)
-    mixed_plain_ms = cuda_ms(
-        lambda: vf.fused_acs_mixed_plain(sym, gain, ridx, nbits))
     mixed_bytes = (Bk * n_sym * 96 * 4 + Bk * 48 * 4 + Bk * 4 * 2
                    + 8 * 2 * MAX_DBPS * 16 + 8 * 4 * 2
                    + Bk * Tp * 8 + Bk * 64 * 4)
     mixed_ops = acs_ops(Bk, Tp, vf.MIXED_UNROLL) + \
         Bk * Tp * 2 * FRONT_OPS_PER_SLOT
+    for radix, key in ((2, "fused_mixed"), (4, "fused_mixed_r4")):
+        measure(key,
+                lambda r=radix: vf.fused_acs_mixed(sym, gain, ridx, nbits, r),
+                lambda r=radix: vf.fused_acs_mixed_plain(sym, gain, ridx,
+                                                         nbits, r),
+                same_acs, mixed_bytes, mixed_ops, [Bk, n_sym, Tp])
     del out["fused"], sym, gain
 
     # the known-rate fused kernel at each of rx.receive(fused_demap=True)'s
     # 8 launches (one lane each): times and bounds summed over them
-    rate_ms = rate_plain_ms = rate_bytes = rate_ops = 0.0
-    rate_shapes, err_rate = [], 0.0
     with cplx.exact_fp32():
-        for k in one_per_rate:
-            _r, acq = rx._acquire_frame(caps[k], device=dev)
-            rate = RATES[acq.rate_mbps]
-            nsb = geometry.sym_bucket(acq.n_sym)
-            seg = rx._padded_segment(acq, nsb, dev)
-            s1, g1 = rx._front_symbols(seg[None], nsb)
-            x1 = vf.pad_symbols(s1, rate)
-            nb1 = [acq.n_sym * rate.n_dbps]
-            err_rate = max(err_rate, same_acs(
-                torch, vf.fused_acs_rate(x1, g1, rate, nb1),
-                vf.fused_acs_rate_plain(x1, g1, rate, nb1),
-                f"fused_acs_rate_kernel at {rate.mbps} Mbps"))
-            rate_ms += cuda_ms(lambda: vf.fused_acs_rate(x1, g1, rate, nb1),
-                               reps=5)
-            rate_plain_ms += cuda_ms(
-                lambda: vf.fused_acs_rate_plain(x1, g1, rate, nb1))
-            tp1 = int(x1.shape[1]) * rate.n_dbps
-            cadence = vf.symbols_per_block(rate) * rate.n_dbps
-            rate_bytes += (int(x1.shape[1]) * 96 * 4 + 48 * 4 + 4
-                           + 2 * rate.n_dbps * 16 + tp1 * 8 + 64 * 4)
-            rate_ops += acs_ops(1, tp1, cadence) + \
-                tp1 * 2 * FRONT_OPS_PER_SLOT
-            rate_shapes.append([1, int(x1.shape[1]), tp1])
+        for radix, key in ((2, "fused_rate"), (4, "fused_rate_r4")):
+            total_k = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+            nbytes = nops = 0
+            shapes = []
+            for k in one_per_rate:
+                _r, acq = rx._acquire_frame(caps[k], device=dev)
+                rate = RATES[acq.rate_mbps]
+                nsb = geometry.sym_bucket(acq.n_sym)
+                seg = rx._padded_segment(acq, nsb, dev)
+                s1, g1 = rx._front_symbols(seg[None], nsb)
+                x1 = vf.pad_symbols(s1, rate)
+                nb1 = [acq.n_sym * rate.n_dbps]
+                tp1 = int(x1.shape[1]) * rate.n_dbps
+                cadence = vf.symbols_per_block(rate) * rate.n_dbps
+                b1 = (int(x1.shape[1]) * 96 * 4 + 48 * 4 + 4
+                      + 2 * rate.n_dbps * 16 + tp1 * 8 + 64 * 4)
+                o1 = acs_ops(1, tp1, cadence) + tp1 * 2 * FRONT_OPS_PER_SLOT
+                measure(key, lambda: vf.fused_acs_rate(x1, g1, rate, nb1,
+                                                       radix),
+                        lambda: vf.fused_acs_rate_plain(x1, g1, rate, nb1,
+                                                        radix),
+                        same_acs, b1, o1, [1, int(x1.shape[1]), tp1])
+                for f in total_k:
+                    total_k[f] = (max if f == "max_abs_err" else
+                                  sum)((total_k[f], stats[key][f]))
+                nbytes += b1
+                nops += o1
+                shapes.append(stats[key]["shape"])
+            b_ms, b_by = bound(nbytes, nops)
+            stats[key] = dict(total_k, bound_ms=b_ms, bound_by=b_by,
+                              shape=shapes)
 
+    launch_path = {"acs": "receive_many", "traceback": "receive_many",
+                   "fused_mixed": "receive_many_fused",
+                   "fused_rate": "receive_fused",
+                   "acs_r4": "receive_many_radix4",
+                   "acs_i16": "receive_many_int16",
+                   "acs_i16_r4": "receive_many_int16_radix4",
+                   "acs_i8": "receive_many_int8",
+                   "acs_i8_r4": "receive_many_int8_radix4",
+                   "fused_mixed_r4": "receive_many_fused_radix4",
+                   "fused_rate_r4": "receive_fused_radix4"}
     kernels = []
-    for (name, replaces, path, err, ms, plain, nbytes, nops, shape) in (
-            ("acs_f32_kernel", "ziria_tpu/ops/viterbi_pallas.py:332",
-             "receive_many", err_acs, acs_ms, acs_plain_ms, acs_bytes,
-             acs_ops(Bk, Tp, vc.RENORM), [Bk, Tp]),
-            ("traceback_kernel", "ziria_tpu/ops/viterbi_pallas.py:517",
-             "receive_many", err_tb, tb_ms, tb_plain_ms, tb_bytes, tb_ops,
-             [Bk, Tp]),
-            ("fused_acs_mixed_kernel", "ziria_tpu/ops/viterbi_pallas.py:1174",
-             "receive_many_fused", err_mixed, mixed_ms, mixed_plain_ms,
-             mixed_bytes, mixed_ops, [Bk, n_sym, Tp]),
-            ("fused_acs_rate_kernel", "ziria_tpu/ops/viterbi_pallas.py:893",
-             "receive_fused", err_rate, rate_ms, rate_plain_ms, rate_bytes,
-             rate_ops, rate_shapes)):
-        b_ms, b_by = bound(nbytes, nops)
+    for name, (instance, replaces) in KERNELS.items():
+        p = launch_path[name]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "kernel": instance, "route": "cuda",
             "source": "ziria_tpu_torch/csrc/viterbi.cu",
-            "replaces": replaces, "path": path,
-            "launches": paths[path]["launches"][name],
-            "max_abs_err": err, "parity": "bitwise equal to plain",
-            "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": shape, "card": card})
+            "replaces": replaces, "path": p,
+            "launches": paths[p]["launches"][name],
+            "parity": "bitwise equal to plain", **stats[name],
+            "parity_max_abs_err": parity[name], "library_ms": None,
+            "card": card})
+    emit({"window_acs": dict(stats["window_acs"], path="receive_many_window",
+                             launches=paths["receive_many_window"]
+                             ["launches"]["acs"], card=card)})
     emit({"kernels": kernels})
+    emit({"wall_s": time.perf_counter() - wall0})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -138,8 +138,8 @@ def test_wrappers_take_the_plain_version_on_cpu(fronts):
     dec, met = vf.fused_acs_rate(d54, t(gain[:3]), rate, [200, 648, 0])
     assert dec.shape == (3, 3 * 216, 8)
     # only kernel launches count
-    assert vf.LAUNCHES == {"fused_mixed": 0, "fused_rate": 0}
-    assert viterbi_cuda.LAUNCHES == {"acs": 0, "traceback": 0}
+    assert not any(vf.LAUNCHES.values())
+    assert not any(viterbi_cuda.LAUNCHES.values())
 
 
 def test_wrappers_reject_bad_input(fronts):

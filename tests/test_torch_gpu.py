@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked ``gpu``: without a card every test skips (the fixture
-decides, at run time). On a machine with one:
+"""The port's CUDA kernels against their plain PyTorch versions (and each
+radix-4 kernel against its radix-2 twin), on the card. Marked ``gpu``:
+without a card every test skips (the fixture decides, at run time). On
+a machine with one:
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
@@ -24,6 +25,11 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _only(module, **counts):
+    """The module's whole launch-count dict: `counts`, 0 elsewhere."""
+    return {k: counts.get(k, 0) for k in module.LAUNCHES}
+
+
 def _llr(b, t, seed):
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(b, t, 2)) * 2.0).astype(np.float32)
@@ -39,7 +45,7 @@ def test_acs_and_traceback_kernels_equal_plain(cuda, b, t):
     dec, met = vc.acs(llr)
     bits = vc.traceback(dec, met)
     torch.cuda.synchronize()
-    assert vc.LAUNCHES == {"acs": 1, "traceback": 1}
+    assert vc.LAUNCHES == _only(vc, acs=1, traceback=1)
     dec_p, met_p = vc.acs_plain(llr)
     assert torch.equal(dec, dec_p)
     assert torch.equal(met.view(torch.int32), met_p.view(torch.int32))
@@ -103,7 +109,7 @@ def test_fused_mixed_kernel_equals_plain(cuda, b, n_sym):
     vf.reset_launches()
     got = vf.fused_acs_mixed(data, gain, ridx, nbits)
     torch.cuda.synchronize()
-    assert vf.LAUNCHES == {"fused_mixed": 1, "fused_rate": 0}
+    assert vf.LAUNCHES == _only(vf, fused_mixed=1)
     _same_acs(got, vf.fused_acs_mixed_plain(data, gain, ridx, nbits))
 
 
@@ -117,7 +123,7 @@ def test_fused_rate_kernel_equals_plain(cuda, mbps):
     vf.reset_launches()
     got = vf.fused_acs_rate(data, gain, rate, nbits)
     torch.cuda.synchronize()
-    assert vf.LAUNCHES == {"fused_mixed": 0, "fused_rate": 1}
+    assert vf.LAUNCHES == _only(vf, fused_rate=1)
     _same_acs(got, vf.fused_acs_rate_plain(data, gain, rate, nbits))
 
 
@@ -150,3 +156,90 @@ def test_fused_receive_paths_on_card_equal_cpu(cuda):
         assert one.crc_ok
         np.testing.assert_array_equal(one.psdu_bits, g.psdu_bits)
     assert vf.LAUNCHES["fused_rate"] == len(caps)
+
+
+def _quantized(b, t, md, seed):
+    """Random soft pairs quantized for `md` (per-frame scale), with an
+    all-erasure lane and an erasure tail, and for int8 a lane of long
+    +-15 runs that reaches the -128 rail."""
+    q = vc._quantize_for(md, _llr(b, t, seed))
+    if md == "int8" and b > 3:
+        q[3] = 15
+        q[3, t // 4: t // 2] = -15
+    return q
+
+
+@pytest.mark.parametrize("md,radix", [("float32", 4), ("int16", 2),
+                                      ("int16", 4), ("int8", 2),
+                                      ("int8", 4)])
+@pytest.mark.parametrize("b,t", [(1, 64), (33, 1024), (130, 4160)])
+def test_mode_acs_kernels_equal_plain_and_radix2(cuda, md, radix, b, t):
+    x = (_llr(b, t, b + t) if md == "float32"
+         else _quantized(b, t, md, b + t)).to(cuda)
+    vc.reset_launches()
+    dec, met = vc.acs(x, md, radix)
+    bits = vc.traceback(dec, met)
+    torch.cuda.synchronize()
+    assert vc.LAUNCHES == _only(vc, traceback=1,
+                                **{vc.ACS_KEYS[(md, radix)]: 1})
+    assert met.dtype == (torch.float32 if md == "float32" else torch.int32)
+    dec_p, met_p = vc.acs_plain(x, metric_dtype=md, radix=radix)
+    assert torch.equal(dec, dec_p)
+    assert torch.equal(met.view(torch.int32), met_p.view(torch.int32))
+    assert torch.equal(bits, vc.traceback_plain(dec, met))
+    dec2, met2 = vc.acs(x, md, 2)
+    assert torch.equal(dec, dec2) and torch.equal(met, met2)
+
+
+@pytest.mark.parametrize("b,n_sym", [(1, 4), (128, 16)])
+def test_fused_radix4_kernels_equal_plain_and_radix2(cuda, b, n_sym):
+    ridx = np.arange(b) % 8
+    data, gain, nbits = (t.to(cuda) for t in _fused_inputs(b, n_sym, ridx,
+                                                           b + n_sym))
+    vf.reset_launches()
+    got = vf.fused_acs_mixed(data, gain, ridx, nbits, radix=4)
+    torch.cuda.synchronize()
+    assert vf.LAUNCHES == _only(vf, fused_mixed_r4=1)
+    _same_acs(got, vf.fused_acs_mixed_plain(data, gain, ridx, nbits,
+                                            radix=4))
+    _same_acs(got, vf.fused_acs_mixed(data, gain, ridx, nbits))
+    for mbps in sorted(params.RATES):
+        rate = params.RATES[mbps]
+        n_sym_p = 2 * vf.symbols_per_block(rate)
+        data, gain, nbits = (t.to(cuda) for t in _fused_inputs(
+            b, n_sym_p, np.full(b, params.RATE_INDEX[mbps]), mbps))
+        vf.reset_launches()
+        got = vf.fused_acs_rate(data, gain, rate, nbits, radix=4)
+        torch.cuda.synchronize()
+        assert vf.LAUNCHES == _only(vf, fused_rate_r4=1)
+        _same_acs(got, vf.fused_acs_rate_plain(data, gain, rate, nbits,
+                                               radix=4))
+        _same_acs(got, vf.fused_acs_rate(data, gain, rate, nbits))
+
+
+def test_decode_modes_on_card_equal_cpu(cuda):
+    caps = _captures(3)
+    modes = [({"viterbi_radix": 4}, {"acs_r4": 1}),
+             ({"viterbi_metric": "int16"}, {"acs_i16": 1}),
+             ({"viterbi_metric": "int8", "viterbi_radix": 4},
+              {"acs_i8_r4": 1}),
+             ({"viterbi_window": 256}, {"acs": 1}),
+             ({"fused_demap": True, "viterbi_radix": 4}, {})]
+    for knobs, counts in modes:
+        vc.reset_launches()
+        vf.reset_launches()
+        got = framebatch.receive_many(caps, check_fcs=True, device=cuda,
+                                      **knobs)
+        assert vc.LAUNCHES == _only(vc, traceback=1, **counts), knobs
+        if knobs.get("fused_demap"):
+            assert vf.LAUNCHES == _only(vf, fused_mixed_r4=1)
+        want = framebatch.receive_many(caps, check_fcs=True, device="cpu",
+                                       **knobs)
+        for g, w in zip(got, want):
+            assert g.ok and g.crc_ok, knobs
+            assert (g.ok, g.rate_mbps, g.length_bytes, g.crc_ok) == \
+                (w.ok, w.rate_mbps, w.length_bytes, w.crc_ok)
+            np.testing.assert_array_equal(g.psdu_bits, w.psdu_bits)
+        one = rx.receive(caps[-1], check_fcs=True, device=cuda, **knobs)
+        assert one.crc_ok
+        np.testing.assert_array_equal(one.psdu_bits, got[-1].psdu_bits)

@@ -45,5 +45,5 @@ def test_receive_many_fused_equals_reference_unfused(corpus,  # noqa: F811
     _same_results(got, jax_many["default"])
     assert sum(g.ok for g in got) == len(RATES)
     # on the CPU the wrappers run their plain versions: nothing counts
-    assert vf.LAUNCHES == {"fused_mixed": 0, "fused_rate": 0}
-    assert viterbi_cuda.LAUNCHES == {"acs": 0, "traceback": 0}
+    assert not any(vf.LAUNCHES.values())
+    assert not any(viterbi_cuda.LAUNCHES.values())

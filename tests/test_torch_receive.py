@@ -11,6 +11,8 @@ for its fused front (its Pallas fused kernels take minutes in interpret
 mode; test_torch_fused_decode.py holds them in its ``slow`` test).
 """
 
+import inspect
+
 import jax
 import numpy as np
 import pytest
@@ -95,7 +97,8 @@ def test_acquire_frame_and_padded_segment_match_reference(corpus):
         np.testing.assert_array_equal(acq.frame_np, jacq.frame_np)
         close(acq.eps, jacq.eps)
         nsb = geometry.sym_bucket(acq.n_sym)
-        close(rx._padded_segment(acq, nsb), jrx._padded_segment(jacq, nsb))
+        close(rx._padded_segment(acq, nsb, device="cpu"),
+              jrx._padded_segment(jacq, nsb))
 
 
 def test_bucket_rules_match_reference():
@@ -160,3 +163,17 @@ def test_receive_cuda_device_raises_without_cuda(monkeypatch, corpus):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         rx.receive(corpus[0])
+
+
+def test_private_steps_default_to_cuda(corpus):
+    # like every entry point, the per-capture steps run on the card
+    # unless the caller passes a device
+    for fn in (rx._acquire_frame, rx._padded_segment):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    _res, acq = rx._acquire_frame(corpus[0], device="cpu")
+    nsb = geometry.sym_bucket(acq.n_sym)
+    if torch.cuda.is_available():
+        assert rx._padded_segment(acq, nsb).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            rx._padded_segment(acq, nsb)

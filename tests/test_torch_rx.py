@@ -255,12 +255,40 @@ def test_crc_many_matches_reference(corpus):
     pytest.param("receive", {"fused_demap": True, "viterbi_radix": 4},
                  id="receive-fused_demap-radix4"),
     pytest.param("receive", {"geometry": object()}, id="receive-geometry")])
-def test_unported_knobs_raise(entry, kwargs):
-    fn = framebatch.receive_many if entry == "receive_many" else rx.receive
-    capture = np.zeros((600, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn([capture] if entry == "receive_many" else capture,
-           device="cpu", **kwargs)
+def test_unported_knobs_raise(corpus, entry, kwargs):
+    """``fxp`` and a ``geometry`` object still raise, naming the ROADMAP
+    item that ports them. The decode modes of the other cases run now:
+    each is held against the port itself on the corpus, with no JAX
+    call (test_torch_modes*.py hold them against the reference). Radix
+    4 equals radix 2 field for field; a window and an int16 metric
+    decode every lane to the default's payload."""
+    if {"fxp", "geometry"} & set(kwargs):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rx.receive(np.zeros((600, 2), np.float32), device="cpu",
+                       **kwargs)
+        return
+
+    def run(**kw):
+        if entry == "receive_many":
+            return framebatch.receive_many(corpus[0], check_fcs=True,
+                                           device="cpu", **kw)
+        return [rx.receive(corpus[0][0], check_fcs=True, device="cpu",
+                           **kw)]
+    got = run(**kwargs)
+    if kwargs.get("viterbi_radix") == 4:
+        want = run(**dict(kwargs, viterbi_radix=2))
+        for g, w in zip(got, want):
+            assert (g.ok, g.rate_mbps, g.length_bytes, g.crc_ok) == \
+                (w.ok, w.rate_mbps, w.length_bytes, w.crc_ok)
+            same(g.psdu_bits, w.psdu_bits)
+    else:
+        want = corpus[3] if entry == "receive_many" else run()
+        assert [g.ok for g in got] == [w.ok for w in want]
+        for g, w in zip(got, want):
+            if w.ok:
+                assert g.crc_ok is True and w.crc_ok is True
+                same(g.psdu_bits, w.psdu_bits)
+    assert len(got) == len(want) and got[0].ok
 
 
 def test_default_knob_values_run(corpus):

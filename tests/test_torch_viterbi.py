@@ -87,7 +87,7 @@ def test_wrappers_take_the_plain_version_on_cpu(reference):
     np.testing.assert_array_equal(dec.numpy(), dec_ref)
     np.testing.assert_array_equal(bits.numpy(), bits_ref)
     # only kernel launches count
-    assert viterbi_cuda.LAUNCHES == {"acs": 0, "traceback": 0}
+    assert not any(viterbi_cuda.LAUNCHES.values())
 
 
 def test_decode_batch_equals_pallas_decode(reference):

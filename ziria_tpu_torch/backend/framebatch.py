@@ -9,7 +9,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
-from ziria_tpu_torch.ops import cplx
+from ziria_tpu_torch.ops import cplx, viterbi
 from ziria_tpu_torch.phy.wifi import rx as _rx
 from ziria_tpu_torch.phy.wifi.params import N_SERVICE_BITS, RATE_INDEX, \
     RATES
@@ -46,22 +46,23 @@ def receive_many(captures: Sequence[Any], check_fcs: bool = False,
        start, derotated by its own CFO;
     3. decode (``rx.decode_data_mixed``): every rate's front, then one
        Viterbi over the whole mixed-rate batch (the CUDA ACS and
-       traceback kernels on the card); with ``fused_demap`` (or
-       ZIRIA_FUSED_DEMAP=1) one rate-independent front and the
-       rate-switched fused kernel; ``sco_track`` (or
-       ZIRIA_RX_SCO_TRACK=1) adds pilot phase-ramp tracking;
+       traceback kernels on the card) in the mode the knobs pick:
+       ``viterbi_window`` (the windowed decode: the windows of every
+       lane as one batch), ``viterbi_metric`` ("int16", "int8": the
+       integer ACS kernels on per-frame quantized soft values),
+       ``viterbi_radix`` (4: two steps per ACS iteration; None reads
+       ZIRIA_VITERBI_RADIX); with ``fused_demap`` (or
+       ZIRIA_FUSED_DEMAP=1) at float32 metrics and no window, one
+       rate-independent front and the rate-switched fused kernel;
+       ``sco_track`` (or ZIRIA_RX_SCO_TRACK=1) adds pilot phase-ramp
+       tracking;
     4. with ``check_fcs``, the masked CRC of every lane.
 
     Runs on `device` ("cuda" by default; the tests pass "cpu", where
-    the kernels' plain versions run). A window, a quantized metric and
-    radix 4 raise NotImplementedError naming the ROADMAP item that
-    ports them."""
+    the kernels' plain versions run)."""
     batched_acquire = batched_acquire_enabled(batched_acquire)
     sco_track = _rx.sco_track_enabled(sco_track)
-    fused_demap = _rx.fused_demap_enabled(fused_demap) \
-        and _rx._fused_front_applies(viterbi_window, viterbi_metric)
-    _rx.check_decode_knobs("receive_many", viterbi_window, viterbi_metric,
-                           viterbi_radix, fused_demap)
+    fused_demap = _rx.fused_demap_enabled(fused_demap)
     device = _rx.check_device(device, "receive_many")
     with cplx.exact_fp32():
         if batched_acquire:
@@ -88,21 +89,25 @@ def receive_many(captures: Sequence[Any], check_fcs: bool = False,
             segs = torch.stack([_rx._padded_segment(a, n_sym_b, device)
                                 for _i, a in padded])
         return _mixed_decode_tail(acqs, padded, segs, n_sym_b, results,
-                                  check_fcs, sco_track, fused_demap)
+                                  check_fcs, viterbi_window, viterbi_metric,
+                                  viterbi_radix, sco_track, fused_demap)
 
 
 def _mixed_decode_tail(acqs, padded, segs, n_sym_b: int,
                        results: List[Any], check_fcs: bool,
-                       sco_track: bool = False, fused_demap: bool = False):
+                       viterbi_window=None, viterbi_metric=None,
+                       viterbi_radix=None, sco_track: bool = False,
+                       fused_demap: bool = False):
     """The mixed-rate decode over the lane-padded segments, the
     batched FCS check when asked, and the per-lane PSDU slices.
     `acqs` is [(i, acq)] for the real lanes, `padded` the pad_lanes
     list `segs` was built from."""
     ridx = [RATE_INDEX[a.rate_mbps] for _i, a in padded]
     nbits = [a.n_sym * RATES[a.rate_mbps].n_dbps for _i, a in padded]
-    clear_dev = _rx.decode_data_mixed(segs, ridx, nbits, n_sym_b,
-                                      sco_track=sco_track,
-                                      fused_demap=fused_demap)
+    clear_dev = _rx.decode_data_mixed(
+        segs, ridx, nbits, n_sym_b, viterbi_window, viterbi_metric,
+        viterbi._check_radix(viterbi_radix), sco_track=sco_track,
+        fused_demap=fused_demap)
     crc_b = None
     if check_fcs:
         npsdu = torch.tensor([8 * a.length_bytes for _i, a in padded],

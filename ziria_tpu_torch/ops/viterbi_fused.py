@@ -19,19 +19,23 @@ kernels hold the same facts as one-hot matrices for the MXU;
 tests pin them equal.
 
 Two kernels share one device routine (csrc/viterbi.cu
-``fused_acs_frame``), each with a wrapper, a plain version and a launch
-count:
+``fused_acs_frame<Radix>``), each with a wrapper, a plain version and a
+launch count per radix (radix 4 takes two ACS steps as one butterfly,
+bit-identical to radix 2; the sub-block's 12 steps are six whole
+pairs):
 
-- :func:`fused_acs_mixed` runs ``fused_acs_mixed_kernel``, replacing
-  ``_make_mixed_fused_acs_kernel`` (viterbi_pallas.py:1174): each frame
-  at its own rate over the bucket-maximal trellis n_sym * 216, renorm
-  every 72 steps (``MIXED_UNROLL``), symbol reads clamped to the last
-  symbol.
-- :func:`fused_acs_rate` runs ``fused_acs_rate_kernel``, replacing
-  ``_make_fused_acs_kernel`` (viterbi_pallas.py:893): one rate for the
-  batch, symbols padded to a multiple of spb = ceil(64 / n_dbps),
-  renorm every spb * n_dbps steps (72, 72, 96, 72, 96, 144, 192, 216
-  for the 8 rates).
+- :func:`fused_acs_mixed` runs ``fused_acs_mixed_kernel<R>`` (keys
+  ``fused_mixed``, ``fused_mixed_r4``), replacing
+  ``_make_mixed_fused_acs_kernel(n_sym_p, R)`` (viterbi_pallas.py:1174):
+  each frame at its own rate over the bucket-maximal trellis n_sym *
+  216, renorm every 72 steps (``MIXED_UNROLL``), symbol reads clamped
+  to the last symbol.
+- :func:`fused_acs_rate` runs ``fused_acs_rate_kernel<R>`` (keys
+  ``fused_rate``, ``fused_rate_r4``), replacing
+  ``_make_fused_acs_kernel(spb, n_dbps, norm, R)`` (viterbi_pallas.py:893):
+  one rate for the batch, symbols padded to a multiple of spb =
+  ceil(64 / n_dbps), renorm every spb * n_dbps steps (72, 72, 96, 72,
+  96, 144, 192, 216 for the 8 rates).
 
 Both write ``viterbi_cuda.acs``'s decisions and final metrics, so
 ``viterbi_cuda.traceback`` finishes either decode: the Pallas
@@ -57,6 +61,7 @@ from ziria_tpu_torch.ops import viterbi_cuda
 from ziria_tpu_torch.ops.coding import PUNCTURE_KEEP
 from ziria_tpu_torch.ops.demap import _NORM, demap_bit_layout
 from ziria_tpu_torch.ops.interleave import deinterleave_slots
+from ziria_tpu_torch.ops.viterbi import _check_radix
 from ziria_tpu_torch.phy.wifi.params import MAX_DBPS, RATE_INDEX, \
     RATE_MBPS_ORDER, RATES, RateParams
 
@@ -68,7 +73,8 @@ MIXED_UNROLL = 72
 MIXED_CHUNKS = 18
 
 #: launches of each kernel since the last :func:`reset_launches`
-LAUNCHES = {"fused_mixed": 0, "fused_rate": 0}
+LAUNCHES = {"fused_mixed": 0, "fused_rate": 0, "fused_mixed_r4": 0,
+            "fused_rate_r4": 0}
 
 
 def reset_launches() -> None:
@@ -192,27 +198,34 @@ def fused_front_plain(data, gain, rate_idx, nbits, Tp: int) -> torch.Tensor:
 # --------------------------------------------------------- mixed kernel
 
 
-def fused_acs_mixed_plain(data, gain, rate_idx, nbits):
+def _key(name: str, radix: int) -> str:
+    if radix not in (2, 4):
+        raise ValueError(f"{name}: radix {radix!r} is not 2 or 4")
+    return name if radix == 2 else f"{name}_r4"
+
+
+def fused_acs_mixed_plain(data, gain, rate_idx, nbits, radix: int = 2):
     """:func:`fused_acs_mixed` in plain PyTorch: the fused front, then
-    the ACS renormalizing every 72 steps."""
+    the ACS at `radix` renormalizing every 72 steps."""
     Tp = data.shape[1] * MAX_DBPS
     return viterbi_cuda.acs_plain(
         fused_front_plain(data, gain, rate_idx, nbits, Tp),
-        renorm=MIXED_UNROLL)
+        renorm=MIXED_UNROLL, radix=radix)
 
 
-def fused_acs_mixed(data, gain, rate_idx, nbits):
+def fused_acs_mixed(data, gain, rate_idx, nbits, radix: int = 2):
     """Rate-switched fused front + ACS: symbols (B, n_sym, 48, 2), gains
     (B, 48), host rate indices (B,) into RATE_MBPS_ORDER, bit counts
     (B,) -> (decisions (B, Tp, 8) uint8, final metrics (B, 64)), Tp =
-    n_sym * 216. Launches ``fused_acs_mixed_kernel`` on CUDA tensors
-    (one warp per frame), runs :func:`fused_acs_mixed_plain` on CPU
-    ones."""
+    n_sym * 216, at radix 2 or 4. Launches ``fused_acs_mixed_kernel``
+    on CUDA tensors (one warp per frame), runs
+    :func:`fused_acs_mixed_plain` on CPU ones."""
+    key = _key("fused_mixed", radix)
     x = _symbols(data)
     B, n_sym = x.shape[0], x.shape[1]
     ridx = _rate_rows(rate_idx, B)
     if x.device.type == "cpu":
-        return fused_acs_mixed_plain(x, gain, ridx, nbits)
+        return fused_acs_mixed_plain(x, gain, ridx, nbits, radix)
     viterbi_cuda._check_cuda("fused_acs_mixed", x)
     g, nb = _gain_and_bits(x, gain, nbits, B)
     if B == 0:
@@ -226,10 +239,10 @@ def fused_acs_mixed(data, gain, rate_idx, nbits):
     err = viterbi_cuda._lib().ziria_fused_acs_mixed(
         x.data_ptr(), g.data_ptr(), nb.data_ptr(), r.data_ptr(),
         bank.data_ptr(), ndbps_t.data_ptr(), norms_t.data_ptr(),
-        dec.data_ptr(), metrics.data_ptr(), B, n_sym, Tp, dev.index,
+        dec.data_ptr(), metrics.data_ptr(), B, n_sym, Tp, radix, dev.index,
         viterbi_cuda._stream(x))
-    viterbi_cuda._raise_on(err, "fused_acs_mixed_kernel")
-    LAUNCHES["fused_mixed"] += 1
+    viterbi_cuda._raise_on(err, f"fused_acs_mixed_kernel ({key})")
+    LAUNCHES[key] += 1
     return dec, metrics
 
 
@@ -244,12 +257,14 @@ def _gain_and_bits(x, gain, nbits, B: int):
     return g, nb.reshape(-1).expand(B).contiguous()
 
 
-def viterbi_decode_mixed_fused(data, gain, rate_idx, nbits_real):
+def viterbi_decode_mixed_fused(data, gain, rate_idx, nbits_real,
+                               radix: int = None):
     """Rate-switched fused decode of a mixed-rate batch: -> (B, n_sym *
     216) raw decoded bits, the shape and meaning of the unfused mixed
-    trellis (valid over each lane's first nbits_real bits)."""
-    return viterbi_cuda.traceback(
-        *fused_acs_mixed(data, gain, rate_idx, nbits_real))
+    trellis (valid over each lane's first nbits_real bits). ``radix``
+    None reads ZIRIA_VITERBI_RADIX."""
+    return viterbi_cuda.traceback(*fused_acs_mixed(
+        data, gain, rate_idx, nbits_real, _check_radix(radix)))
 
 
 # ---------------------------------------------------- known-rate kernel
@@ -267,21 +282,24 @@ def _rate_table(rate: RateParams, device):
     return bank[RATE_INDEX[rate.mbps]]
 
 
-def fused_acs_rate_plain(data, gain, rate: RateParams, nbits):
+def fused_acs_rate_plain(data, gain, rate: RateParams, nbits,
+                         radix: int = 2):
     """:func:`fused_acs_rate` in plain PyTorch."""
     Tp = data.shape[1] * rate.n_dbps
     ridx = [RATE_INDEX[rate.mbps]] * data.shape[0]
     return viterbi_cuda.acs_plain(
         fused_front_plain(data, gain, ridx, nbits, Tp),
-        renorm=symbols_per_block(rate) * rate.n_dbps)
+        renorm=symbols_per_block(rate) * rate.n_dbps, radix=radix)
 
 
-def fused_acs_rate(data, gain, rate: RateParams, nbits):
+def fused_acs_rate(data, gain, rate: RateParams, nbits, radix: int = 2):
     """Known-rate fused front + ACS: symbols (B, n_sym, 48, 2) with
     n_sym a multiple of :func:`symbols_per_block`, gains (B, 48), bit
     counts (B,) -> (decisions (B, Tp, 8) uint8, final metrics (B, 64)),
-    Tp = n_sym * n_dbps. Launches ``fused_acs_rate_kernel`` on CUDA
-    tensors, runs :func:`fused_acs_rate_plain` on CPU ones."""
+    Tp = n_sym * n_dbps, at radix 2 or 4. Launches
+    ``fused_acs_rate_kernel`` on CUDA tensors, runs
+    :func:`fused_acs_rate_plain` on CPU ones."""
+    key = _key("fused_rate", radix)
     x = _symbols(data)
     B, n_sym = x.shape[0], x.shape[1]
     spb = symbols_per_block(rate)
@@ -289,7 +307,7 @@ def fused_acs_rate(data, gain, rate: RateParams, nbits):
         raise ValueError(f"fused_acs_rate: n_sym={n_sym} is not a multiple "
                          f"of spb={spb} at {rate.mbps} Mbps")
     if x.device.type == "cpu":
-        return fused_acs_rate_plain(x, gain, rate, nbits)
+        return fused_acs_rate_plain(x, gain, rate, nbits, radix)
     viterbi_cuda._check_cuda("fused_acs_rate", x)
     g, nb = _gain_and_bits(x, gain, nbits, B)
     if B == 0:
@@ -303,9 +321,9 @@ def fused_acs_rate(data, gain, rate: RateParams, nbits):
         x.data_ptr(), g.data_ptr(), nb.data_ptr(), table.data_ptr(),
         dec.data_ptr(), metrics.data_ptr(), rate.n_dbps,
         float(np.float32(_NORM[rate.n_bpsc])), B, n_sym, Tp,
-        spb * rate.n_dbps, dev.index, viterbi_cuda._stream(x))
-    viterbi_cuda._raise_on(err, "fused_acs_rate_kernel")
-    LAUNCHES["fused_rate"] += 1
+        spb * rate.n_dbps, radix, dev.index, viterbi_cuda._stream(x))
+    viterbi_cuda._raise_on(err, f"fused_acs_rate_kernel ({key})")
+    LAUNCHES[key] += 1
     return dec, metrics
 
 
@@ -321,14 +339,16 @@ def pad_symbols(data, rate: RateParams) -> torch.Tensor:
 
 
 def viterbi_decode_batch_fused(data, gain, rate: RateParams,
-                               n_bits: int = None, nbits_real=None):
+                               n_bits: int = None, nbits_real=None,
+                               radix: int = None):
     """Known-rate fused decode: equalized symbols (B, n_sym, 48, 2) and
     gains (B, 48) at one rate -> (B, n_sym * n_dbps) bits (or the first
     `n_bits`). Symbols are zero-padded to a multiple of spb, whose
     steps lie past every lane's bit count; nbits_real (B,) defaults to
-    every step real."""
+    every step real. ``radix`` None reads ZIRIA_VITERBI_RADIX."""
+    radix = _check_radix(radix)
     T = data.shape[1] * rate.n_dbps
     nbits = T if nbits_real is None else nbits_real
-    bits = viterbi_cuda.traceback(
-        *fused_acs_rate(pad_symbols(data, rate), gain, rate, nbits))
+    bits = viterbi_cuda.traceback(*fused_acs_rate(
+        pad_symbols(data, rate), gain, rate, nbits, radix))
     return bits[:, :T if n_bits is None else min(T, n_bits)]

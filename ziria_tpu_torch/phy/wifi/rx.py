@@ -14,7 +14,11 @@ reference.
 
 With ``fused_demap`` the demap, deinterleave and depuncture run inside
 the decode kernel (ops/viterbi_fused) on the output of one
-rate-independent :func:`_front_symbols`.
+rate-independent :func:`_front_symbols`. The decode-mode knobs
+``viterbi_window``, ``viterbi_metric`` and ``viterbi_radix`` choose the
+Viterbi as the reference's do (ops/viterbi_cuda); a ``viterbi_radix``
+of None reads ZIRIA_VITERBI_RADIX, a window or metric of None means
+the default (off, float32).
 """
 
 from __future__ import annotations
@@ -167,33 +171,6 @@ def _decode_front(frame, rate: RateParams, n_sym: int,
     return dep.reshape(frame.shape[0], -1, 2)
 
 
-# the reference's decode-mode knobs, the values (besides None) of the
-# default mode the port runs, and the ROADMAP.md item that ports the rest
-_DEFAULT_MODE = {"viterbi_window": (0,), "viterbi_metric": ("float32",),
-                 "viterbi_radix": (2,)}
-_DECODE_MODES_ITEM = "queue 1, 'Decode modes off the default'"
-
-
-def check_decode_knobs(caller: str, viterbi_window=None, viterbi_metric=None,
-                       viterbi_radix=None, fused: bool = False) -> None:
-    """Raise NotImplementedError, naming the ROADMAP.md item that ports
-    it, for a decode mode the port does not run yet: a window, a
-    quantized metric, radix 4, or (with the fused front on) radix 4."""
-    if fused and viterbi_radix == 4:
-        raise NotImplementedError(
-            f"{caller}(fused_demap=True, viterbi_radix=4) is not ported "
-            f"yet: the fused kernels run radix 2 (ROADMAP.md queue 2, "
-            f"the radix-4 item)")
-    for name, value in (("viterbi_window", viterbi_window),
-                        ("viterbi_metric", viterbi_metric),
-                        ("viterbi_radix", viterbi_radix)):
-        if value is not None and value not in _DEFAULT_MODE[name]:
-            raise NotImplementedError(
-                f"{caller}({name}={value!r}) is not ported yet; it runs "
-                f"only the default decode mode (ROADMAP.md "
-                f"{_DECODE_MODES_ITEM})")
-
-
 def _fused_front_applies(viterbi_window, viterbi_metric) -> bool:
     """Where the fused front composes: full-frame decodes at float32
     metrics (the reference's windowed and quantized modes keep the
@@ -216,20 +193,21 @@ def decode_data_batch(frames, rate: RateParams, n_sym: int,
     """Batched DATA decode at one known rate: aligned, CFO-corrected
     frames (B, >=400+80*n_sym, 2) -> (psdu bits (B, n_psdu_bits),
     service bits (B, 16)). Unfused: the front at that rate, then the
-    ACS and traceback kernels; fused: :func:`_front_symbols`, then the
-    known-rate fused kernel (ops/viterbi_fused) and the traceback."""
-    fused = fused_demap_enabled(fused_demap) \
-        and _fused_front_applies(viterbi_window, viterbi_metric)
-    check_decode_knobs("decode_data_batch", viterbi_window, viterbi_metric,
-                       viterbi_radix, fused)
+    batch decode of the (window, metric, radix) mode
+    (``viterbi_cuda.viterbi_decode_batch_opt``); fused (float32 metrics
+    and no window): :func:`_front_symbols`, then the known-rate fused
+    kernel (ops/viterbi_fused) and the traceback."""
     T = n_sym * rate.n_dbps
-    if fused:
+    if fused_demap_enabled(fused_demap) \
+            and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frames, n_sym, sco_track)
-        bits = viterbi_fused.viterbi_decode_batch_fused(data, gain, rate,
-                                                        n_bits=T)
+        bits = viterbi_fused.viterbi_decode_batch_fused(
+            data, gain, rate, n_bits=T, radix=viterbi_radix)
     else:
         dep = _decode_front(frames, rate, n_sym, sco_track)
-        bits = viterbi_cuda.viterbi_decode_batch(dep)[:, :T]
+        bits = viterbi_cuda.viterbi_decode_batch_opt(
+            dep, n_bits=T, window=viterbi_window,
+            metric_dtype=viterbi_metric, radix=viterbi_radix)
     return _decode_back(bits, n_psdu_bits)
 
 
@@ -242,35 +220,51 @@ def decode_data_bucketed(frame, rate: RateParams, n_sym_bucket: int,
     """DATA decode of ONE frame (FRAME_DATA_START + 80*n_sym_bucket, 2)
     padded to a symbol bucket, with n_bits_real true data bits ->
     (n_sym_bucket * n_dbps,) descrambled bits; steps at or past
-    n_bits_real are erasures. Fused: the known-rate fused kernel over
-    one lane; otherwise the front at `rate` and the scan decoder."""
-    fused = fused_demap_enabled(fused_demap) \
-        and _fused_front_applies(viterbi_window, viterbi_metric)
-    check_decode_knobs("decode_data_bucketed", viterbi_window,
-                       viterbi_metric, viterbi_radix, fused)
-    if fused:
+    n_bits_real are erasures. Fused (float32 metrics, no window): the
+    known-rate fused kernel over one lane; otherwise the front at
+    `rate` and the Viterbi of the mode (:func:`_decode_data_bits_unfused`)."""
+    if fused_demap_enabled(fused_demap) \
+            and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frame[None], n_sym_bucket, sco_track)
         bits = viterbi_fused.viterbi_decode_batch_fused(
             data, gain, rate, n_bits=n_sym_bucket * rate.n_dbps,
-            nbits_real=[int(n_bits_real)])
+            nbits_real=[int(n_bits_real)], radix=viterbi_radix)
     else:
-        bits = _decode_data_bits_unfused(frame, rate, n_sym_bucket,
-                                         n_bits_real, sco_track)[None]
+        bits = _decode_data_bits_unfused(
+            frame, rate, n_sym_bucket, n_bits_real, viterbi_window,
+            viterbi_metric, viterbi_radix, sco_track)[None]
     return scramble.descramble_bits(
         bits, scramble.recover_seed(bits[:, :7]))[0]
 
 
 def _decode_data_bits_unfused(frame, rate: RateParams, n_sym_bucket: int,
-                              n_bits_real: int, sco_track: bool = False):
-    """The unfused body of :func:`decode_data_bucketed` at the default
-    decode mode: the front at `rate`, the erasure mask at n_bits_real,
-    then the scan decoder (ops/viterbi, the reference's ``lax.scan``
-    decoder: no kernel). Raw decoded bits (n_sym_bucket * n_dbps,)."""
-    dep = _decode_front(frame[None], rate, n_sym_bucket, sco_track)[0]
-    t = torch.arange(dep.shape[0], device=dep.device)
-    dep = torch.where((t < n_bits_real)[:, None], dep, 0.0)
-    return viterbi.viterbi_decode(dep[None],
-                                  n_bits=n_sym_bucket * rate.n_dbps)[0]
+                              n_bits_real: int, viterbi_window=None,
+                              viterbi_metric=None, viterbi_radix=None,
+                              sco_track: bool = False):
+    """The unfused body of :func:`decode_data_bucketed`: the front at
+    `rate`, the erasure mask at n_bits_real, then the reference's
+    three-way choice of Viterbi: with a window, the windowed decode of
+    the one frame; at radix 4 or int8 metrics, the kernel batch decode
+    as a one-lane batch; otherwise the scan decoder, float32 or int16
+    (ops/viterbi, the reference's ``lax.scan`` decoders: no kernel).
+    Raw decoded bits (n_sym_bucket * n_dbps,)."""
+    dep = _decode_front(frame[None], rate, n_sym_bucket, sco_track)
+    t = torch.arange(dep.shape[1], device=dep.device)
+    dep = torch.where((t < n_bits_real)[None, :, None], dep, 0.0)
+    n_bits = n_sym_bucket * rate.n_dbps
+    if viterbi_window:
+        bits = viterbi_cuda.viterbi_decode_batch_windowed(
+            dep, n_bits=n_bits, window=viterbi_window,
+            metric_dtype=viterbi_metric, radix=viterbi_radix)
+    elif (viterbi._check_radix(viterbi_radix) != 2
+          or (viterbi_metric or "float32") == "int8"):
+        bits = viterbi_cuda.viterbi_decode_batch(
+            dep, n_bits=n_bits, metric_dtype=viterbi_metric,
+            radix=viterbi_radix)
+    else:
+        bits = viterbi.viterbi_decode(dep, n_bits=n_bits,
+                                      metric_dtype=viterbi_metric)
+    return bits[0]
 
 
 def mixed_front(frames, rate_idx: Sequence[int], n_bits_real,
@@ -310,24 +304,24 @@ def decode_data_mixed(frames, rate_idx: Sequence[int], n_bits_real,
     n_sym_bucket * MAX_DBPS) uint8 descrambled bit streams.
 
     Unfused, each lane's front runs at its own rate
-    (:func:`mixed_front`) and the one rate-agnostic Viterbi runs over
-    the whole batch through the ACS and traceback kernels
-    (ops/viterbi_cuda). Fused, one rate-independent
+    (:func:`mixed_front`) and the one rate-agnostic Viterbi of the
+    (window, metric, radix) mode runs over the whole batch through the
+    ACS and traceback kernels (``viterbi_cuda.viterbi_decode_batch_opt``).
+    Fused (float32 metrics, no window), one rate-independent
     :func:`_front_symbols` feeds the rate-switched fused kernel
     (ops/viterbi_fused), which demaps, deinterleaves and depunctures
     each lane at its own rate inside the ACS."""
-    fused = fused_demap_enabled(fused_demap) \
-        and _fused_front_applies(viterbi_window, viterbi_metric)
-    check_decode_knobs("decode_data_mixed", viterbi_window, viterbi_metric,
-                       viterbi_radix, fused)
-    if fused:
+    if fused_demap_enabled(fused_demap) \
+            and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frames, n_sym_bucket, sco_track)
-        bits = viterbi_fused.viterbi_decode_mixed_fused(data, gain, rate_idx,
-                                                        n_bits_real)
+        bits = viterbi_fused.viterbi_decode_mixed_fused(
+            data, gain, rate_idx, n_bits_real, radix=viterbi_radix)
     else:
         dep = mixed_front(frames, rate_idx, n_bits_real, n_sym_bucket,
                           sco_track)
-        bits = viterbi_cuda.viterbi_decode_batch(dep)
+        bits = viterbi_cuda.viterbi_decode_batch_opt(
+            dep, window=viterbi_window, metric_dtype=viterbi_metric,
+            radix=viterbi_radix)
     return scramble.descramble_bits(bits, scramble.recover_seed(bits[:, :7]))
 
 
@@ -514,7 +508,7 @@ def _host(*ts):
     return flat.cpu().numpy()
 
 
-def _acquire_frame(samples, max_samples: int = 1 << 16, device="cpu"):
+def _acquire_frame(samples, max_samples: int = 1 << 16, device="cuda"):
     """Detect, align and CFO-correct ONE capture and parse its SIGNAL
     field: the per-capture acquisition of :func:`receive` (the batched
     ``acquire_many`` equals it lane for lane). Returns (RxResult, None)
@@ -542,7 +536,7 @@ def _acquire_frame(samples, max_samples: int = 1 << 16, device="cpu"):
                            length_bytes, n_sym)
 
 
-def _padded_segment(acq: _Acquired, n_sym_bucket: int, device="cpu"):
+def _padded_segment(acq: _Acquired, n_sym_bucket: int, device="cuda"):
     """The acquired frame's data region padded to `n_sym_bucket`
     symbols and CFO-corrected, on `device`: (FRAME_DATA_START +
     80*n_sym_bucket, 2). The batched ``gather_segments_many`` gives
@@ -583,13 +577,16 @@ def receive(samples, check_fcs: bool = False,
     reference's ``rx.receive``.
 
     The default decode is the scan decoder (the reference's is
-    ``lax.scan``, no kernel); ``fused_demap`` (or ZIRIA_FUSED_DEMAP)
-    runs the known-rate fused kernel and the traceback kernel instead.
+    ``lax.scan``, no kernel), as is ``viterbi_metric="int16"`` at radix
+    2; ``viterbi_radix=4`` (None reads ZIRIA_VITERBI_RADIX) and int8
+    metrics run the ACS and traceback kernels over one lane,
+    ``viterbi_window`` the windowed decode; ``fused_demap`` (or
+    ZIRIA_FUSED_DEMAP) runs the known-rate fused kernel and the
+    traceback kernel instead, at float32 metrics without a window.
     ``sco_track`` (or ZIRIA_RX_SCO_TRACK) adds the pilot phase-ramp
     tracking. Runs on `device` ("cuda" by default; the tests pass
-    "cpu"). ``fxp``, a ``geometry`` object, a window, a quantized
-    metric and radix 4 raise NotImplementedError naming the ROADMAP.md
-    item that ports them."""
+    "cpu"). ``fxp`` and a ``geometry`` object raise
+    NotImplementedError naming the ROADMAP.md item that ports them."""
     if fxp:
         raise NotImplementedError(
             "receive(fxp=True) is not ported yet (ROADMAP.md queue 1, "
@@ -599,10 +596,6 @@ def receive(samples, check_fcs: bool = False,
             "receive(geometry=...) is not ported yet; the port has the "
             "default bucket rules only (ROADMAP.md queue 1, item 6, "
             "'Observability, geometry and bench on GPU')")
-    fused = fused_demap_enabled(fused_demap) \
-        and _fused_front_applies(viterbi_window, viterbi_metric)
-    check_decode_knobs("receive", viterbi_window, viterbi_metric,
-                       viterbi_radix, fused)
     device = check_device(device, "receive")
     with cplx.exact_fp32():
         res, acq = _acquire_frame(samples, max_samples, device)
@@ -611,10 +604,11 @@ def receive(samples, check_fcs: bool = False,
         rate = RATES[acq.rate_mbps]
         n_sym_b = _sym_bucket(acq.n_sym)
         seg = _padded_segment(acq, n_sym_b, device)
-        clear = decode_data_bucketed(seg, rate, n_sym_b,
-                                     acq.n_sym * rate.n_dbps,
-                                     fused_demap=fused,
-                                     sco_track=sco_track_enabled(sco_track))
+        clear = decode_data_bucketed(
+            seg, rate, n_sym_b, acq.n_sym * rate.n_dbps, viterbi_window,
+            viterbi_metric, viterbi._check_radix(viterbi_radix),
+            fused_demap_enabled(fused_demap),
+            sco_track_enabled(sco_track))
         psdu = clear[N_SERVICE_BITS: N_SERVICE_BITS + 8 * acq.length_bytes]
         crc = bool(check_crc32(psdu)) if check_fcs else None
         return RxResult(True, acq.rate_mbps, acq.length_bytes,
