@@ -13,9 +13,13 @@ Phases, each printing one JSON line:
    card, bitwise (decisions, final metrics as int32 bit patterns,
    traceback bits): the ACS kernel of each decode mode (float32, int16
    and int8 metrics at radix 2 and 4) and the traceback (float32 and
-   int32 metrics) at B=128, T=8192 on random soft inputs with an
-   all-erasure lane and erasure tails, quantized for the integer modes,
-   with an int8 lane of long +-15 runs that hits the -128 rail; the
+   int32 metrics) at B=128, T=8192 on random soft inputs with a lane
+   with no erasure, an all-erasure lane, random erasure tails, tails
+   ending 8 steps before to 8 after a renorm boundary, a -0.0 tail and
+   an inf before a tail (whose sweep must not stop early), quantized
+   for the integer modes, with an int8 lane of long +-15 runs that hits
+   the -128 rail; each ACS kernel's stop steps lie past each frame's
+   last live step, on a renorm boundary; the
    rate-switched fused kernel at B=128, 64 symbols, all 8 rates, random
    bit counts with an all-erasure lane and a lane ending inside a
    symbol; the known-rate fused kernel at each rate, B=128, the same;
@@ -57,7 +61,10 @@ Phases, each printing one JSON line:
    each mode's decode step (quantize, window cut, ACS); per-capture
    ``receive`` ms per rate, fused and default; then each kernel at the
    main path's own inputs (and the ACS at the window path's) beside
-   its plain version (held bitwise equal there too) and its bound.
+   its plain version (held bitwise equal there too) and its bound;
+   for each ACS instance also the stop step per frame (max, mean), ns
+   per step of the longest chain and the bound of the work it needed;
+   the traceback also on the fused path's full-sweep words.
 
 Then a ``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
@@ -81,6 +88,7 @@ SNR_DB = 25.0
 PARITY_T = 8192
 PARITY_SYM = 64              # fused kernels' parity geometry (symbols)
 WINDOW = 1024                # the windowed path's window
+INF_LANE = 7                 # the parity lane with an inf soft value
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -201,12 +209,40 @@ def make_captures(rng, device):
 
 
 def parity_inputs(rng, b, t):
-    """Random soft pairs with an all-erasure lane and erasure tails."""
+    """Random soft pairs: lane 0 with no erasure, lane 3 all erasures,
+    lanes 8, 16, ... with random erasure tails, lanes 9, 11, ..., 41
+    live up to 8 steps before to 8 steps after the renorm boundary
+    t // 2, lane 1 with a -0.0 tail, lane 7 with an inf before its
+    tail."""
     llr = (rng.normal(size=(b, t, 2)) * 2.0).astype(np.float32)
     llr[3] = 0.0
     for k in range(8, b, 8):
         llr[k, int(rng.integers(t // 4, t)):] = 0.0
+    for i, off in enumerate(range(-8, 9)):
+        llr[9 + 2 * i, t // 2 + off:] = 0.0
+    llr[1, t // 2 + 100:] = -0.0
+    llr[INF_LANE, t // 3, 0] = np.inf
+    llr[INF_LANE, 3 * t // 4:] = 0.0
     return llr
+
+
+def last_live(torch, x):
+    """(B,) the last step of each frame whose soft pair is not an
+    erasure (-1 for none)."""
+    live = (x != 0).any(dim=2)
+    back = live.flip(1).to(torch.int8).argmax(dim=1)
+    return torch.where(live.any(dim=1), x.shape[1] - 1 - back,
+                       torch.full_like(back, -1))
+
+
+def check_stops(torch, stops, x, what: str) -> dict:
+    """The ACS kernel's stop steps: multiples of 64, past each frame's
+    last live step, at most Tp. Returns their max and mean."""
+    tp = x.shape[1]
+    s = stops.long()
+    check(bool(((s % 64 == 0) & (s <= tp) & (s > last_live(torch, x))).all()),
+          f"{what}: stop steps out of their range")
+    return {"max": int(s.max()), "mean": float(s.double().mean())}
 
 
 def fused_parity_inputs(rng, ndbps, n_sym):
@@ -262,6 +298,13 @@ def acs_ops(b, tp, cadence):
     return b * tp * 64 * 6 + b * (tp // cadence) * 64 * 2
 
 
+def acs_ops_to(stops, cadence):
+    """ACS operations of the sweeps the kernel ran: each lane's steps up
+    to its stop (as acs_ops)."""
+    s = stops.long()
+    return int(s.sum()) * 64 * 6 + int((s // cadence).sum()) * 64 * 2
+
+
 def acs_bytes(b, tp, in_bytes):
     """ACS bytes: soft pairs in (`in_bytes` per value), one 8-byte
     decision word per step and 64 4-byte metrics out."""
@@ -314,16 +357,21 @@ def main(argv=None) -> int:
     # ---- 3. kernel parity
     rng = np.random.default_rng(args.seed)
     llr = torch.from_numpy(parity_inputs(rng, B, PARITY_T)).to(dev)
-    parity = {}
+    parity, parity_stops = {}, {}
     ref2 = {}
     for key, (md, radix) in MODES.items():
         x = llr if md == "float32" else vc._quantize_for(md, llr)
         if md == "int8":
             x[5] = 15                            # long +-15 runs: the rail
             x[5, PARITY_T // 4: PARITY_T // 2] = -15
-        got = vc.acs(x, md, radix)
+        *got, stops = vc.acs_with_stops(x, md, radix)
+        got = tuple(got)
         err = same_acs(torch, got, vc.acs_plain(x, metric_dtype=md,
                                                 radix=radix), key)
+        parity_stops[key] = check_stops(torch, stops, x, key)
+        if md == "float32":
+            check(int(stops[INF_LANE]) == PARITY_T,
+                  f"{key}: the inf lane stopped early")
         if md == "int8":
             check(bool((got[1][5] == -128).any()),
                   "int8 parity lane did not reach the -128 rail")
@@ -336,7 +384,7 @@ def main(argv=None) -> int:
                            f"traceback after {key}")
         parity[key] = err
         parity["traceback"] = max(parity.get("traceback", 0.0), err_tb)
-    del llr, ref2, got, x, bits
+    del llr, ref2, got, x, bits, stops
 
     ridx = np.arange(B) % 8
     ndbps = [RATES[RATE_MBPS_ORDER[r]].n_dbps for r in ridx]
@@ -372,7 +420,8 @@ def main(argv=None) -> int:
     del d, g, nb, got, twin
     emit({"phase": "kernel_parity", "B": B, "T": PARITY_T,
           "fused_symbols": PARITY_SYM, "equal": "bitwise to plain; "
-          "radix 4 bitwise to radix 2", "max_abs_err": parity})
+          "radix 4 bitwise to radix 2", "max_abs_err": parity,
+          "acs_stop_steps": parity_stops})
 
     # ---- 4. end to end: each path with the launch counts zeroed just
     # before it and read just after
@@ -621,13 +670,26 @@ def main(argv=None) -> int:
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           shape=shape)
 
+    def stopped(key, x, nbytes, **mode):
+        """Each frame's stop step in the kernel's own run on `x`, ns per
+        step of the longest chain, and the bound of the work it needed:
+        every pair read and every word written, the operations of each
+        lane's steps up to its stop."""
+        _dec, _met, stops = vc.acs_with_stops(x, **mode)
+        st = check_stops(torch, stops, x, f"{key} at its path's inputs")
+        b_ms, b_by = bound(nbytes, acs_ops_to(stops, vc.RENORM))
+        stats[key].update(stop_step=st, bound_needed_ms=b_ms,
+                          bound_needed_by=b_by,
+                          ns_per_step=stats[key]["ms"] * 1e6 / st["max"])
+
     for key, (md, radix) in MODES.items():
         x = llr if md == "float32" else q[md]
+        nbytes = acs_bytes(Bk, Tp, 4 if md == "float32" else 2)
         measure(key, lambda x=x, md=md, radix=radix: vc.acs(x, md, radix),
                 lambda x=x, md=md, radix=radix: vc.acs_plain(
                     x, metric_dtype=md, radix=radix),
-                same_acs, acs_bytes(Bk, Tp, 4 if md == "float32" else 2),
-                acs_ops(Bk, Tp, vc.RENORM), [Bk, Tp])
+                same_acs, nbytes, acs_ops(Bk, Tp, vc.RENORM), [Bk, Tp])
+        stopped(key, x, nbytes, metric_dtype=md, radix=radix)
     # traceback: 4 integer operations per step, plus the 63-compare
     # argmax, counted at the float32 rate; float32 metrics (the default
     # path) and int32 metrics (the int16 path's), timed
@@ -639,14 +701,27 @@ def main(argv=None) -> int:
     dec_i, met_i = vc.acs(q["int16"], "int16", 2)
     stats["traceback"]["int32_metrics_ms"] = cuda_ms(
         lambda: vc.traceback(dec_i, met_i), reps=5)
+    # the traceback must read every decision word, so the work it needs
+    # is the whole bound; and on the fused path's words (a full sweep)
+    stats["traceback"].update(bound_needed_ms=stats["traceback"]["bound_ms"],
+                              bound_needed_by=stats["traceback"]["bound_by"])
+    dec_f, met_f = out["fused"]
+    measure("traceback_fused", lambda: vc.traceback(dec_f, met_f),
+            lambda: vc.traceback_plain(dec_f, met_f), same_bits,
+            Bk * Tp * 8 + Bk * 64 * 4 + Bk * Tp, Bk * (Tp * 4 + 63),
+            [Bk, Tp])
+    stats["traceback"]["fused_dec"] = stats.pop("traceback_fused")
+    del dec_f, met_f
     del out["llr"], out["acs"], llr, dec, met, dec_i, met_i, q
 
-    # the window path's ACS at its own inputs (13,824 lanes of 1,280
-    # steps): the acs kernel again, reported beside the kernels line
+    # the window path's ACS at its own inputs (13,824 lanes of 1,216
+    # steps, most of them all erasures): the acs kernel again, reported
+    # beside the kernels line
     w_b, w_t = int(wllr.shape[0]), int(wllr.shape[1])
     measure("window_acs", lambda: vc.acs(wllr), lambda: vc.acs_plain(wllr),
             same_acs, acs_bytes(w_b, w_t, 4), acs_ops(w_b, w_t, vc.RENORM),
             [w_b, w_t])
+    stopped("window_acs", wllr, acs_bytes(w_b, w_t, 4))
     del wllr, wres
 
     # the rate-switched fused kernel at receive_many(fused_demap=True)'s

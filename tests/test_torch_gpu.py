@@ -243,3 +243,71 @@ def test_decode_modes_on_card_equal_cpu(cuda):
         one = rx.receive(caps[-1], check_fcs=True, device=cuda, **knobs)
         assert one.crc_ok
         np.testing.assert_array_equal(one.psdu_bits, got[-1].psdu_bits)
+
+
+def _edge_llr(b, t, seed):
+    """Soft pairs with a lane with no erasure (0), an all-erasure lane
+    (3), lanes 9, 11, ..., 41 live up to 8 steps before to 8 after the
+    renorm boundary t // 2, a -0.0 tail (1) and an inf before a tail
+    (7)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(b, t, 2)) * 2.0).astype(np.float32)
+    x[3] = 0.0
+    for i, off in enumerate(range(-8, 9)):
+        x[9 + 2 * i, t // 2 + off:] = 0.0
+    x[1, t // 2 + 100:] = -0.0
+    x[7, t // 3, 0] = np.inf
+    x[7, 3 * t // 4:] = 0.0
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("md,radix", [(md, r) for md in
+                                      ("float32", "int16", "int8")
+                                      for r in (2, 4)])
+def test_acs_stop_edge_lanes_equal_plain(cuda, md, radix):
+    t = 2048
+    x = _edge_llr(43, t, 11).to(cuda)
+    if md != "float32":
+        x = vc._quantize_for(md, x)
+    vc.reset_launches()
+    dec, met, stops = vc.acs_with_stops(x, md, radix)
+    bits = vc.traceback(dec, met)
+    torch.cuda.synchronize()
+    assert vc.LAUNCHES == _only(vc, traceback=1,
+                                **{vc.ACS_KEYS[(md, radix)]: 1})
+    _same_acs((dec, met), vc.acs_plain(x, metric_dtype=md, radix=radix))
+    assert torch.equal(bits, vc.traceback_plain(dec, met))
+    live = (x != 0).any(dim=2).cpu().numpy()
+    last = np.array([np.flatnonzero(r).max() if r.any() else -1
+                     for r in live])
+    s = stops.cpu().numpy()
+    assert ((s % 64 == 0) & (s <= t) & (s > last)).all()
+    assert s[0] == t
+    if md == "float32":
+        assert s[7] == t                         # inf: never +0 metrics
+
+
+def test_traceback_on_full_sweep_words_equals_plain(cuda):
+    # the fused path's words (a full sweep, zero words past the bits),
+    # and random words over a trellis long enough for segments of two
+    # 256-word chunks, with a zero run and a zero tail
+    ridx = np.arange(16) % 8
+    data, gain, nbits = (v.to(cuda) for v in _fused_inputs(16, 64, ridx, 5))
+    dec, met = vf.fused_acs_mixed(data, gain, ridx, nbits)
+    assert torch.equal(vc.traceback(dec, met), vc.traceback_plain(dec, met))
+    rng = np.random.default_rng(6)
+    tp = 2048 * 256 + 1000
+    w = rng.integers(0, 2 ** 63, size=(2, tp), dtype=np.int64)
+    w[:, 1000:300000] = 0
+    w[1, 400000:] = 0
+    dec = torch.from_numpy(w.view(np.uint8).reshape(2, tp, 8).copy())
+    met = torch.from_numpy(rng.normal(size=(2, 64)).astype(np.float32))
+    got = vc.traceback(dec.to(cuda), met.to(cuda)).cpu().numpy()
+    for f in range(2):                 # the walk of traceback_plain
+        words = w[f].view(np.uint64).tolist()
+        s, want = int(np.argmax(met[f].numpy())), np.empty(tp, np.uint8)
+        for t in range(tp - 1, -1, -1):
+            want[t] = s >> 5
+            s = ((s & 31) << 1) | ((words[t] >> s) & 1)
+        np.testing.assert_array_equal(got[f], want)
+

@@ -31,18 +31,35 @@
 //   metrics  (B, 64) float32, or int32 for the integer metrics
 //   bits     (B, Tp) uint8: decoded bits
 //
-// What bounds them: each frame is a serial chain of Tp dependent
-// add-compare-select steps (110,592 on the 1000-byte mixed-rate batch),
-// with only B independent chains. The bytes (LLRs or symbols in,
-// decisions out) would take well under 0.1 ms at 3.35 TB/s; the chain's
-// latency takes milliseconds. This first design keeps one chain per warp
-// and the whole 64-state metric vector in registers, so a step costs a
-// handful of shuffles, adds and ballots and touches memory only for its
-// inputs and its 8-byte decision word. Radix 4 takes two steps per
-// iteration with four shuffles where two radix-2 steps take eight, and
-// the integer metrics take exact integer multiply-adds; neither
-// shortens the chain much (PERF.md). Many shorter chains do: the
-// windowed decode runs this kernel over B * ceil(T / window) lanes.
+// What bounds them: each frame is a serial chain of dependent
+// add-compare-select steps, with only B independent chains. The bytes
+// (LLRs or symbols in, decisions out) would take well under 0.1 ms at
+// 3.35 TB/s; the chain's latency takes far longer. Every design here
+// keeps one chain per warp and the whole 64-state metric vector in
+// registers, so a step costs a handful of shuffles, fused multiply-adds
+// and ballots. Radix 4 takes two steps per iteration with four shuffles
+// where two radix-2 steps take eight, and the integer metrics take exact
+// integer multiply-adds; neither shortens the chain much (PERF.md).
+//
+// acs_kernel shortens the chain itself, exactly. A batch pads every
+// frame with erasures (zero soft pairs) up to a common Tp: 110,592 steps
+// on the 1000-byte mixed-rate batch, of which at most 8,208 carry bits.
+// Once every later pair is zero, a candidate is fma(+-1, 0, m) = m, so
+// each metric becomes the max of its two predecessors, and since the K=7
+// trellis joins every state to every state in 6 steps, all 64 metrics
+// are equal 6 steps later and the renorm makes them m - m = +0. From a
+// renorm that leaves all 64 metrics +0.0 (bitwise; integer 0) with only
+// zero pairs after it, every candidate is +0 + +-0 = +0 (round to
+// nearest), every decision word 0 and the final metrics +0: the full
+// sweep's output, which the kernel writes without running it. The kernel
+// learns "only zero pairs after it" from the data (three warps scan the
+// frame backward while the fourth runs the chain), so no caller can make
+// the shortcut wrong; a -0.0, NaN or inf metric simply never stops early.
+// The chain takes its pairs from shared memory, staged one 64-step block
+// ahead by coalesced loads, and writes its decision words once per block
+// as 512 coalesced bytes. traceback_kernel cuts its chain into segments
+// (see there). The windowed decode runs acs_kernel over B * ceil(T /
+// window) shorter lanes, most of which stop at their first renorm.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,6 +73,13 @@ constexpr int kMixedRenorm = 72;     // mixed fused cadence (Pallas MIXED_UNROLL
 constexpr int kBankSlots = 2 * 216;  // slots per rate row of the bank
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kAcsThreads = 128;     // ACS block: the chain and the scan
+constexpr int kScanThreads = kAcsThreads - 32;
+constexpr int kScanUnroll = 16;      // loads in flight per scanning thread
+constexpr int kTailUnknown = 0x7fffffff;  // the scan's result before it ends
+constexpr int kChunk = 256;          // traceback steps staged at a time
+constexpr int kTbWarps = 16;         // traceback block, at most
+constexpr int kMaxSegments = 2048;   // traceback segments a frame, at most
 
 using u64 = unsigned long long;
 
@@ -95,6 +119,13 @@ struct F32 {
   __device__ __forceinline__ static T settle(T m, T mx) {
     return __fsub_rn(m, mx);
   }
+  // a pair that is not an erasure: some bit besides the two signs set
+  __device__ __forceinline__ static bool live(In l) {
+    return ((__float_as_uint(l.x) | __float_as_uint(l.y)) << 1) != 0u;
+  }
+  __device__ __forceinline__ static bool plus_zero(T m) {
+    return __float_as_uint(m) == 0u;
+  }
 };
 
 // Saturating integer metrics on quantized soft pairs (the int16 and int8
@@ -127,6 +158,10 @@ struct Int {
   __device__ __forceinline__ static T settle(T m, T mx) {
     return min(max(m - mx, Lo), Hi);
   }
+  __device__ __forceinline__ static bool live(In l) {
+    return (l.x | l.y) != 0;
+  }
+  __device__ __forceinline__ static bool plus_zero(T m) { return m == 0; }
 };
 
 using I16 = Int<-32768, 32767>;
@@ -258,45 +293,138 @@ __device__ __forceinline__ void renorm(typename M::T& m_lo,
   m_hi = M::settle(m_hi, mx);
 }
 
-// The ACS sweep of one frame per warp: radix 2 (one step an iteration)
-// or 4 (a pair), renorm every 64 steps. Bound: the frame's serial chain
-// (see the top of the file).
+// Warps 1-3 of an ACS block: the frame's last step whose pair is not an
+// erasure, found by scanning backward from Tp in rounds of kScanThreads
+// * kScanUnroll steps (neighbouring threads read neighbouring steps),
+// published in *tail with one store (-1 for an all-erasure frame).
+// `hit` is the three warps' meeting point, -1 at the start.
+__device__ __forceinline__ void scan_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kScanThreads) : "memory");
+}
+
+template <class M>
+__device__ void scan_tail(const typename M::In* __restrict__ x, int Tp,
+                          int tid, int* hit, volatile int* tail) {
+  constexpr int kSpan = kScanThreads * kScanUnroll;
+  int found = -1;
+  for (int end = Tp; end > 0; end -= kSpan) {
+    // all loads first, unconditional (a step before 0 reads step 0 and
+    // is ignored), so that they are in flight together
+    typename M::In v[kScanUnroll];
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u)
+      v[u] = x[max(end - 1 - (u * kScanThreads + tid), 0)];
+    int last = -1;
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      const int t = end - 1 - (u * kScanThreads + tid);
+      if (t >= 0 && M::live(v[u])) last = max(last, t);
+    }
+    last = __reduce_max_sync(kFull, last);
+    if ((tid & 31) == 0 && last >= 0) atomicMax(hit, last);
+    scan_barrier();
+    found = *(volatile int*)hit;
+    scan_barrier();                 // every thread has read it before more
+    if (found >= 0) break;          // atomics of a next round
+  }
+  if (tid == 0) *tail = found;
+}
+
+// Warp 0 of an ACS block: the sweep, radix 2 (one step an iteration) or
+// 4 (a pair), renorm every 64 steps. Each 64-step block takes its pairs
+// from shared memory (loaded, coalesced, while the block before ran)
+// and leaves its 64 decision words there for one 512-byte store. After
+// each renorm the warp stops if the scan has published a last live step
+// before the boundary and all 64 metrics are +0 (see the top of the
+// file). Returns the step where the sweep ended.
 template <class M, int Radix>
-__global__ void __launch_bounds__(32)
-acs_kernel(const typename M::In* __restrict__ llr, u64* __restrict__ dec,
-           typename M::T* __restrict__ metrics, int Tp) {
+__device__ int acs_chain(const typename M::In* __restrict__ x,
+                         u64* __restrict__ out, typename M::T* __restrict__ met,
+                         int Tp, const volatile int* tail,
+                         typename M::In* s_x, u64* s_w) {
   using T = typename M::T;
-  const int frame = blockIdx.x;
   const int lane = threadIdx.x;
   const Lane<M> c(lane);
   T m_lo = lane == 0 ? T(0) : M::kStart;
   T m_hi = M::kStart;
-  const typename M::In* __restrict__ x = llr + (size_t)frame * Tp;
-  u64* __restrict__ out = dec + (size_t)frame * Tp;
-
-  // the 64 steps between renorms fully unrolled: with a partial unroll
-  // nvcc guarded every shuffle and ballot with a divergence branch, and
-  // the radix-2 sweep ran 12 times slower
-  for (int t0 = 0; t0 < Tp; t0 += kRenorm) {
+  typename M::In p_lo = x[lane], p_hi = x[lane + 32];
+  int t0 = 0;
+  for (;;) {
+    __syncwarp();                   // the block before has read s_x, s_w
+    s_x[lane] = p_lo;
+    s_x[lane + 32] = p_hi;
+    __syncwarp();
+    if (t0 + kRenorm < Tp) {
+      p_lo = x[t0 + kRenorm + lane];
+      p_hi = x[t0 + kRenorm + lane + 32];
+    }
+    const int last = *tail;
+    // the 64 steps between renorms fully unrolled: with a partial unroll
+    // nvcc guarded every shuffle and ballot with a divergence branch, and
+    // the radix-2 sweep ran 12 times slower
     if constexpr (Radix == 2) {
 #pragma unroll
       for (int j = 0; j < kRenorm; ++j) {
-        const u64 w = acs_step(c, m_lo, m_hi, M::step(x[t0 + j]));  // broadcast
-        if (lane == 0) out[t0 + j] = w;
+        const u64 w = acs_step(c, m_lo, m_hi, M::step(s_x[j]));
+        if (lane == 0) s_w[j] = w;
       }
     } else {
 #pragma unroll
       for (int j = 0; j < kRenorm; j += 2) {
         u64 w1, w2;
-        acs_pair(c, m_lo, m_hi, M::step(x[t0 + j]), M::step(x[t0 + j + 1]),
-                 w1, w2);
-        if (lane == 0) store_pair(out + t0 + j, w1, w2);
+        acs_pair(c, m_lo, m_hi, M::step(s_x[j]), M::step(s_x[j + 1]), w1, w2);
+        if (lane == 0) store_pair(s_w + j, w1, w2);
       }
     }
-    renorm<M>(m_lo, m_hi);                       // once per 64 steps
+    renorm<M>(m_lo, m_hi);
+    __syncwarp();
+    reinterpret_cast<ulonglong2*>(out + t0)[lane] =
+        reinterpret_cast<const ulonglong2*>(s_w)[lane];
+    t0 += kRenorm;
+    if (t0 >= Tp || __all_sync(kFull, t0 > last && M::plus_zero(m_lo) &&
+                                          M::plus_zero(m_hi)))
+      break;
   }
-  metrics[(size_t)frame * kStates + lane] = m_lo;
-  metrics[(size_t)frame * kStates + lane + 32] = m_hi;
+  met[lane] = m_lo;
+  met[lane + 32] = m_hi;
+  return t0;
+}
+
+// The ACS sweep of one frame per block of 4 warps: warp 0 runs the
+// chain, warps 1-3 scan for the erasure tail; then all four write the
+// zero decision words from the chain's stop to Tp. Bound: the serial
+// chain up to the stop, about 8,300 steps a frame on the mixed-rate
+// batch; the tail's bytes (scan and fill) take tens of microseconds
+// beside it. `stops` (may be null) gets each frame's stop step.
+template <class M, int Radix>
+__global__ void __launch_bounds__(kAcsThreads)
+acs_kernel(const typename M::In* __restrict__ llr, u64* __restrict__ dec,
+           typename M::T* __restrict__ metrics, int* __restrict__ stops,
+           int Tp) {
+  __shared__ __align__(16) u64 s_w[kRenorm];
+  __shared__ __align__(16) typename M::In s_x[kRenorm];
+  __shared__ int s_hit, s_tail, s_stop;
+  const int frame = blockIdx.x;
+  const typename M::In* __restrict__ x = llr + (size_t)frame * Tp;
+  u64* __restrict__ out = dec + (size_t)frame * Tp;
+  if (threadIdx.x == 0) {
+    s_hit = -1;
+    s_tail = kTailUnknown;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int stop = acs_chain<M, Radix>(
+        x, out, metrics + (size_t)frame * kStates, Tp, &s_tail, s_x, s_w);
+    if (threadIdx.x == 0) s_stop = stop;
+  } else {
+    scan_tail<M>(x, Tp, threadIdx.x - 32, &s_hit, &s_tail);
+  }
+  __syncthreads();
+  const int stop = s_stop;          // a multiple of 64: 16-byte aligned
+  ulonglong2* __restrict__ zero = reinterpret_cast<ulonglong2*>(out + stop);
+  for (int i = threadIdx.x; i < (Tp - stop) / 2; i += kAcsThreads)
+    zero[i] = make_ulonglong2(0ull, 0ull);
+  if (stops != nullptr && threadIdx.x == 0) stops[frame] = stop;
 }
 
 // The LLR of one depunctured slot of the fused front end: slot `lane`
@@ -417,35 +545,205 @@ fused_acs_rate_kernel(const float* __restrict__ sym,
                          metrics + (size_t)f * kStates);
 }
 
-// One thread per frame: start at the first argmax of the final metrics
-// (float32 or int32); per step, backward, emit state >> 5, read the
-// survivor bit d of the current state and move to ((state & 31) << 1) | d.
+// One traceback step back over decision word w: the predecessor of
+// state s, ((s & 31) << 1) | (survivor bit of s).
+__device__ __forceinline__ int tb_step(int s, u64 w) {
+  return ((s & 31) << 1) | (int)((w >> s) & 1ull);
+}
+
+// Where state s arrives after n steps back over all-zero words: every
+// step shifts in a 0, so after 6 steps every state is 0.
+__device__ __forceinline__ int tb_zero(int s, int n) {
+  return n >= 6 ? 0 : (s << n) & 63;
+}
+
+// The words of steps [a, a + n) of a frame (n <= kChunk), 8 a lane,
+// neighbouring lanes on neighbouring words; 0 past n.
+__device__ __forceinline__ void load_chunk(const u64* __restrict__ d, int a,
+                                           int n, int lane, u64 (&w)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = i * 32 + lane;
+    w[i] = k < n ? d[a + k] : 0ull;
+  }
+}
+
+__device__ __forceinline__ bool chunk_live(const u64 (&w)[8]) {
+  u64 any = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) any |= w[i];
+  return __any_sync(kFull, any != 0ull);
+}
+
+// Segment-parallel traceback, one block of up to 16 warps per frame.
+// One step's decision word maps each state to its predecessor, and these
+// maps compose exactly, so the walk from the first argmax of the final
+// metrics (float32 or int32) splits into three phases over segments of
+// `seg_len` steps (a multiple of kChunk, staged kChunk words at a time):
+//   1. each warp takes segments warp, warp + nw, ... and, for every end
+//      state (two a lane), walks back to the state before the segment:
+//      a 64-byte map in shared memory. An all-zero chunk needs no walk
+//      (tb_zero), which is what the ACS kernel's zero tail costs here:
+//      its read, issued one chunk ahead;
+//   2. one thread composes the maps backward from the argmax, giving
+//      every segment's end state;
+//   3. each warp walks its segments again from those end states, lane 0
+//      writing the bits to shared memory, the warp storing them
+//      coalesced; an all-zero chunk's bits follow from its end state.
+// Bound: the bytes of the decision words, read once in phase 1 (phase 3
+// reads again only the chunks that are not all zero).
 template <typename T>
-__global__ void traceback_kernel(const u64* __restrict__ dec,
-                                 const T* __restrict__ metrics,
-                                 uint8_t* __restrict__ bits, int B, int Tp) {
-  const int frame = blockIdx.x * blockDim.x + threadIdx.x;
-  if (frame >= B) return;
-  const T* m = metrics + (size_t)frame * kStates;
-  int state = 0;
-  T best = m[0];
-  for (int s = 1; s < kStates; ++s)
-    if (m[s] > best) { best = m[s]; state = s; }
-  const u64* d = dec + (size_t)frame * Tp;
-  uint8_t* out = bits + (size_t)frame * Tp;
-#pragma unroll 16
-  for (int t = Tp - 1; t >= 0; --t) {
-    const u64 w = d[t];
-    out[t] = (uint8_t)(state >> 5);
-    state = ((state & 31) << 1) | (int)((w >> state) & 1ull);
+__global__ void __launch_bounds__(kTbWarps * 32)
+traceback_kernel(const u64* __restrict__ dec, const T* __restrict__ metrics,
+                 uint8_t* __restrict__ bits, int Tp, int seg_len) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nseg = (Tp + seg_len - 1) / seg_len;
+  const int nchunk = seg_len / kChunk;
+  u64* s_w = reinterpret_cast<u64*>(smem) + warp * kChunk;
+  uint8_t* s_bits = smem + nw * kChunk * 8 + warp * kChunk;
+  uint8_t* s_map = smem + nw * kChunk * 9;       // (nseg, 64)
+  uint8_t* s_end = s_map + nseg * kStates;       // (nseg)
+  uint8_t* s_live = s_end + nseg;                // (nseg)
+  const u64* __restrict__ d = dec + (size_t)blockIdx.x * Tp;
+  uint8_t* __restrict__ out = bits + (size_t)blockIdx.x * Tp;
+
+  // 1. this warp's items: its segments, each chunk by chunk from its end
+  const int items = (warp < nseg ? (nseg - 1 - warp) / nw + 1 : 0) * nchunk;
+  auto start = [&](int q) {
+    return (warp + q / nchunk * nw) * seg_len +
+           (nchunk - 1 - q % nchunk) * kChunk;
+  };
+  u64 w[8];
+  if (items > 0) {
+    const int a = start(0);
+    load_chunk(d, a, min(Tp - a, kChunk), lane, w);
+  }
+  int e_lo = lane, e_hi = lane + 32;
+  bool seg_live = false;
+  for (int q = 0; q < items; ++q) {
+    const int a = start(q), n = max(min(Tp - a, kChunk), 0);
+    const bool live = chunk_live(w);
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s_w[i * 32 + lane] = w[i];
+    }
+    __syncwarp();
+    if (q + 1 < items) {            // the next chunk, in flight meanwhile
+      const int a1 = start(q + 1);
+      load_chunk(d, a1, max(min(Tp - a1, kChunk), 0), lane, w);
+    }
+    if (live) {
+#pragma unroll 8
+      for (int t = n - 1; t >= 0; --t) {
+        const u64 v = s_w[t];
+        e_lo = tb_step(e_lo, v);
+        e_hi = tb_step(e_hi, v);
+      }
+    } else {
+      e_lo = tb_zero(e_lo, n);
+      e_hi = tb_zero(e_hi, n);
+    }
+    seg_live |= live;
+    __syncwarp();
+    if (q % nchunk == nchunk - 1) {  // the segment's first chunk: its map
+      const int seg = warp + q / nchunk * nw;
+      s_map[seg * kStates + lane] = (uint8_t)e_lo;
+      s_map[seg * kStates + lane + 32] = (uint8_t)e_hi;
+      if (lane == 0) s_live[seg] = seg_live;
+      e_lo = lane;
+      e_hi = lane + 32;
+      seg_live = false;
+    }
+  }
+  __syncthreads();
+
+  // 2. the end state of every segment, from the first argmax
+  if (threadIdx.x == 0) {
+    const T* m = metrics + (size_t)blockIdx.x * kStates;
+    int s = 0;
+    T best = m[0];
+#pragma unroll
+    for (int k = 1; k < kStates; ++k)
+      if (m[k] > best) { best = m[k]; s = k; }
+    for (int seg = nseg - 1; seg >= 0; --seg) {
+      s_end[seg] = (uint8_t)s;
+      s = s_live[seg] ? s_map[seg * kStates + s]
+                      : tb_zero(s, min(seg_len, Tp - seg * seg_len));
+    }
+  }
+  __syncthreads();
+
+  // 3. the bits of each segment, walked again from its end state
+  for (int seg = warp; seg < nseg; seg += nw) {
+    int s = s_end[seg];
+    const bool seg_has = s_live[seg];
+    for (int c = nchunk - 1; c >= 0; --c) {
+      const int a = seg * seg_len + c * kChunk;
+      const int n = min(Tp - a, kChunk);
+      if (n <= 0) continue;
+      bool live = false;
+      if (seg_has) {
+        load_chunk(d, a, n, lane, w);
+        live = chunk_live(w);
+      }
+      if (!live) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = i * 32 + lane, back = n - 1 - k;
+          if (k < n)
+            out[a + k] = back < 6 ? (uint8_t)((s >> (5 - back)) & 1) : 0;
+        }
+        s = tb_zero(s, n);
+        continue;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s_w[i * 32 + lane] = w[i];
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll 8
+        for (int t = n - 1; t >= 0; --t) {
+          s_bits[t] = (uint8_t)(s >> 5);
+          s = tb_step(s, s_w[t]);
+        }
+      }
+      s = __shfl_sync(kFull, s, 0);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = i * 32 + lane;
+        if (k < n) out[a + k] = s_bits[k];
+      }
+      __syncwarp();
+    }
   }
 }
 
 template <class M, int Radix>
-cudaError_t launch_acs(const void* llr, void* dec, void* metrics, int B,
-                       int Tp, cudaStream_t stream) {
-  acs_kernel<M, Radix><<<B, 32, 0, stream>>>(
-      (const typename M::In*)llr, (u64*)dec, (typename M::T*)metrics, Tp);
+cudaError_t launch_acs(const void* llr, void* dec, void* metrics, void* stops,
+                       int B, int Tp, cudaStream_t stream) {
+  acs_kernel<M, Radix><<<B, kAcsThreads, 0, stream>>>(
+      (const typename M::In*)llr, (u64*)dec, (typename M::T*)metrics,
+      (int*)stops, Tp);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_traceback(const void* dec, const void* metrics,
+                             void* bits, int B, int Tp, cudaStream_t stream) {
+  // segments of kChunk steps, or whole multiples of it past kMaxSegments
+  const int chunks = (Tp + kChunk - 1) / kChunk;
+  const int seg_len = kChunk * ((chunks + kMaxSegments - 1) / kMaxSegments);
+  const int nseg = (Tp + seg_len - 1) / seg_len;
+  const int nw = min(kTbWarps, nseg);
+  const size_t smem = (size_t)nw * kChunk * 9 + (size_t)nseg * (kStates + 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      traceback_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  traceback_kernel<T><<<B, nw * 32, smem, stream>>>(
+      (const u64*)dec, (const T*)metrics, (uint8_t*)bits, Tp, seg_len);
   return cudaGetLastError();
 }
 
@@ -458,9 +756,9 @@ extern "C" {
 
 // metric: 0 float32 (llr float32, metrics float32), 1 int16, 2 int8
 // (llr int16, metrics int32); radix 2 or 4; Tp a multiple of 64; dec
-// 16-byte aligned.
-int ziria_acs(const void* llr, void* dec, void* metrics, int B, int Tp,
-              int metric, int radix, int device, void* stream) {
+// 16-byte aligned; stops null or (B,) int32, each frame's stop step.
+int ziria_acs(const void* llr, void* dec, void* metrics, void* stops, int B,
+              int Tp, int metric, int radix, int device, void* stream) {
   if (B <= 0 || Tp <= 0 || Tp % kRenorm || ((uintptr_t)dec & 15))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -470,16 +768,16 @@ int ziria_acs(const void* llr, void* dec, void* metrics, int B, int Tp,
   if (radix != 2 && !r4) return (int)cudaErrorInvalidValue;
   switch (metric) {
     case 0:
-      err = r4 ? launch_acs<F32, 4>(llr, dec, metrics, B, Tp, s)
-               : launch_acs<F32, 2>(llr, dec, metrics, B, Tp, s);
+      err = r4 ? launch_acs<F32, 4>(llr, dec, metrics, stops, B, Tp, s)
+               : launch_acs<F32, 2>(llr, dec, metrics, stops, B, Tp, s);
       break;
     case 1:
-      err = r4 ? launch_acs<I16, 4>(llr, dec, metrics, B, Tp, s)
-               : launch_acs<I16, 2>(llr, dec, metrics, B, Tp, s);
+      err = r4 ? launch_acs<I16, 4>(llr, dec, metrics, stops, B, Tp, s)
+               : launch_acs<I16, 2>(llr, dec, metrics, stops, B, Tp, s);
       break;
     case 2:
-      err = r4 ? launch_acs<I8, 4>(llr, dec, metrics, B, Tp, s)
-               : launch_acs<I8, 2>(llr, dec, metrics, B, Tp, s);
+      err = r4 ? launch_acs<I8, 4>(llr, dec, metrics, stops, B, Tp, s)
+               : launch_acs<I8, 2>(llr, dec, metrics, stops, B, Tp, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -493,16 +791,10 @@ int ziria_traceback(const void* dec, const void* metrics, void* bits, int B,
   if (B <= 0 || Tp <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 32;
-  const int blocks = (B + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  if (int_metrics)
-    traceback_kernel<int><<<blocks, threads, 0, s>>>(
-        (const u64*)dec, (const int*)metrics, (uint8_t*)bits, B, Tp);
-  else
-    traceback_kernel<float><<<blocks, threads, 0, s>>>(
-        (const u64*)dec, (const float*)metrics, (uint8_t*)bits, B, Tp);
-  return (int)cudaGetLastError();
+  return (int)(int_metrics
+                   ? launch_traceback<int>(dec, metrics, bits, B, Tp, s)
+                   : launch_traceback<float>(dec, metrics, bits, B, Tp, s));
 }
 
 // ridx (B,) int32 in [0, 8); bank (8, 432, 4) int32; ndbps (8,) int32;

@@ -40,12 +40,17 @@ Decisions are (B, Tp, 8) uint8: byte i bit j holds the survivor bit
 of state 8i+j, the Pallas kernel's packed planes per lane (the kernel
 writes them as one little-endian uint64 word per step).
 
-What bounds the kernels on the card: each frame is a chain of Tp
-dependent add-compare-select steps (110,592 in the 1000-byte mixed
-batch) and a batch of 128 frames gives only 128 chains, one warp each.
-That latency bound lies far above the bytes roofline (about 226 MB of
-LLRs and decisions at 3.35 TB/s is under 0.1 ms). The windowed decode
-turns the chain into B * ceil(T / window) shorter ones.
+What bounds the kernels on the card: each frame is a chain of
+dependent add-compare-select steps, and a batch of 128 frames gives
+only 128 chains, whose latency lies far above the bytes roofline
+(about 226 MB of LLRs and decisions at 3.35 TB/s is under 0.1 ms).
+Two cures, both exact: the ACS kernel stops each chain where the
+frame's erasure tail (the zero padding up to Tp: 93% of the 1000-byte
+mixed batch's 110,592 steps) has left every later decision word 0 and
+every metric +0, and writes those itself; the traceback composes
+per-segment state maps, so its chain runs across segments in
+parallel. The windowed decode turns the chain into B * ceil(T /
+window) shorter ones.
 """
 
 from __future__ import annotations
@@ -89,8 +94,8 @@ def _lib():
     lib = cuda_build.library("viterbi")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     sigs = (
-        # llr, dec, metrics, B, Tp, metric, radix, device, stream
-        (lib.ziria_acs, [ptr] * 3 + [i32] * 5 + [ptr]),
+        # llr, dec, metrics, stops, B, Tp, metric, radix, device, stream
+        (lib.ziria_acs, [ptr] * 4 + [i32] * 5 + [ptr]),
         # dec, metrics, bits, B, Tp, int_metrics, device, stream
         (lib.ziria_traceback, [ptr] * 3 + [i32] * 4 + [ptr]),
         # sym, gain, nbits, ridx, bank, ndbps, norms, dec, metrics,
@@ -261,17 +266,32 @@ def acs(llr: torch.Tensor, metric_dtype: str = "float32", radix: int = 2):
     metrics (B, 64)). float32 metrics take float32 soft pairs and give
     float32 metrics; int16 and int8 take quantized int16 pairs (|q| <=
     127, resp. 15) and give int32 metrics. Launches the mode's
-    ``acs_kernel`` instance on a CUDA tensor (one warp per frame), runs
-    :func:`acs_plain` on a CPU tensor."""
+    ``acs_kernel`` instance on a CUDA tensor (one block per frame; the
+    sweep stops, exactly, where the frame's erasure tail has made every
+    later decision 0), runs :func:`acs_plain` on a CPU tensor."""
+    return _acs(llr, metric_dtype, radix, False)[:2]
+
+
+def acs_with_stops(llr: torch.Tensor, metric_dtype: str = "float32",
+                   radix: int = 2):
+    """:func:`acs`, and (B,) int32 the step at which each frame's sweep
+    ended: a multiple of 64, Tp for a full sweep (always, for the plain
+    version)."""
+    return _acs(llr, metric_dtype, radix, True)
+
+
+def _acs(llr: torch.Tensor, metric_dtype: str, radix: int, want_stops: bool):
     md, radix = _check_mode(metric_dtype, radix)
     want = torch.float32 if md == "float32" else torch.int16
     if llr.dim() != 3 or llr.shape[2] != 2 or llr.dtype != want:
         raise ValueError(f"acs({md}): want (B, Tp, 2) {want}, got "
                          f"{tuple(llr.shape)} {llr.dtype}")
-    if llr.device.type == "cpu":
-        return acs_plain(llr, RENORM, md, radix)
-    _check_cuda("acs", llr)
     B, Tp = llr.shape[0], llr.shape[1]
+    if llr.device.type == "cpu":
+        dec, metrics = acs_plain(llr, RENORM, md, radix)
+        return dec, metrics, (torch.full((B,), Tp, dtype=torch.int32)
+                              if want_stops else None)
+    _check_cuda("acs", llr)
     if B == 0 or Tp % RENORM:
         raise ValueError(f"acs: B={B}, Tp={Tp}; want B > 0 and Tp a "
                          f"multiple of {RENORM}")
@@ -279,13 +299,17 @@ def acs(llr: torch.Tensor, metric_dtype: str = "float32", radix: int = 2):
     metrics = torch.empty((B, N_STATES), device=llr.device,
                           dtype=torch.float32 if md == "float32"
                           else torch.int32)
+    stops = (torch.empty((B,), dtype=torch.int32, device=llr.device)
+             if want_stops else None)
     err = _lib().ziria_acs(llr.data_ptr(), dec.data_ptr(),
-                           metrics.data_ptr(), B, Tp, _METRIC_CODE[md],
-                           radix, llr.device.index, _stream(llr))
+                           metrics.data_ptr(),
+                           None if stops is None else stops.data_ptr(),
+                           B, Tp, _METRIC_CODE[md], radix, llr.device.index,
+                           _stream(llr))
     key = ACS_KEYS[(md, radix)]
     _raise_on(err, f"acs_kernel ({key})")
     LAUNCHES[key] += 1
-    return dec, metrics
+    return dec, metrics, stops
 
 
 # ------------------------------------------------------------ traceback
@@ -309,9 +333,9 @@ def traceback_plain(dec: torch.Tensor, metrics: torch.Tensor):
 def traceback(dec: torch.Tensor, metrics: torch.Tensor):
     """Traceback: decisions (B, Tp, 8) uint8 + final metrics (B, 64)
     float32 or int32 -> bits (B, Tp) uint8. Launches
-    ``traceback_kernel`` on CUDA tensors (one thread per frame; one
-    instance per metric type), runs :func:`traceback_plain` on CPU
-    tensors."""
+    ``traceback_kernel`` on CUDA tensors (one block per frame, the walk
+    cut into segments; one instance per metric type), runs
+    :func:`traceback_plain` on CPU tensors."""
     if dec.dim() != 3 or dec.shape[2] != 8 or dec.dtype != torch.uint8:
         raise ValueError(f"traceback: want (B, Tp, 8) uint8 decisions, "
                          f"got {tuple(dec.shape)} {dec.dtype}")
