@@ -21,10 +21,15 @@ Phases, each printing one JSON line:
    the -128 rail; each ACS kernel's stop steps lie past each frame's
    last live step, on a renorm boundary; the
    rate-switched fused kernel at B=128, 64 symbols, all 8 rates, random
-   bit counts with an all-erasure lane and a lane ending inside a
-   symbol; the known-rate fused kernel at each rate, B=128, the same;
-   both fused kernels at radix 2 and 4. Each radix-4 kernel also equals
-   its radix-2 twin bitwise;
+   bit counts with the stop edge lanes (FUSED_*): an all-erasure lane,
+   lanes ending 8 steps before to 8 after a renorm boundary, lanes of
+   Tp bits and more, an inf symbol before a lane's bits end (whose
+   sweep must not stop early), NaN symbols past a lane's bits and a
+   lane whose metrics are +0 long before its bits end; the known-rate
+   fused kernel at each rate, B=128, the same; both fused kernels at
+   radix 2 and 4, each fused kernel's stop steps on renorm boundaries at
+   or past each frame's bits, the edge lanes' at the first boundary they
+   can. Each radix-4 kernel also equals its radix-2 twin bitwise;
 4. end_to_end: 128 captures, 16 at each of the 8 rates, each a
    1000-byte PSDU (996 random bytes + FCS) behind a random offset, with
    a random CFO and AWGN at 25 dB, made by the port's TX and a seeded
@@ -62,9 +67,11 @@ Phases, each printing one JSON line:
    ``receive`` ms per rate, fused and default; then each kernel at the
    main path's own inputs (and the ACS at the window path's) beside
    its plain version (held bitwise equal there too) and its bound;
-   for each ACS instance also the stop step per frame (max, mean), ns
-   per step of the longest chain and the bound of the work it needed;
-   the traceback also on the fused path's full-sweep words.
+   for each ACS and fused instance also the stop step per frame (max,
+   mean), ns per step of the longest chain and the bound of the work it
+   needed, every frame of the main path stopping at the first boundary
+   it can; the traceback also on the fused path's words (zero past each
+   frame's stop).
 
 Then a ``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
@@ -89,6 +96,17 @@ PARITY_T = 8192
 PARITY_SYM = 64              # fused kernels' parity geometry (symbols)
 WINDOW = 1024                # the windowed path's window
 INF_LANE = 7                 # the parity lane with an inf soft value
+# the fused kernels' stop edge lanes (fused_edge_lanes), also the CPU
+# and card tests': lanes 0-16 with bit counts ending 8 steps before to 8
+# after a renorm boundary, then one lane each of 0 bits, Tp bits, more
+# than Tp bits, an inf symbol before its bits end, NaN symbols past its
+# bits, and metrics +0 long before its bits end (BPSK, for the mixed
+# kernel)
+FUSED_EDGE = 17
+FUSED_ZERO, FUSED_FULL, FUSED_LONG, FUSED_INF, FUSED_NAN, FUSED_QUIET = \
+    range(FUSED_EDGE, FUSED_EDGE + 6)
+FUSED_LANES = FUSED_EDGE + 6
+FUSED_EXACT = [i for i in range(FUSED_LANES) if i != FUSED_INF]
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -97,6 +115,7 @@ F32_OPS_S = 67e12
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
+SYMBOL_BYTES = 96 * 4        # one equalized OFDM symbol: 48 float32 pairs
 # the ACS modes: (metric dtype, radix) by launch key
 MODES = {"acs": ("float32", 2), "acs_r4": ("float32", 4),
          "acs_i16": ("int16", 2), "acs_i16_r4": ("int16", 4),
@@ -245,18 +264,59 @@ def check_stops(torch, stops, x, what: str) -> dict:
     return {"max": int(s.max()), "mean": float(s.double().mean())}
 
 
-def fused_parity_inputs(rng, ndbps, n_sym):
-    """Random equalized symbols (len(ndbps), n_sym, 48, 2) and gains
-    (one nulled subcarrier), and bit counts: random, with lane 0 all
-    erasures and lane 1 ending inside a symbol."""
+def fused_edge_lanes(data, gain, nbits, ndbps, edge, tp):
+    """Write the fused stop edge lanes (FUSED_*) into lanes 0 to
+    FUSED_LANES - 1 of numpy symbols (B, n_sym, 48, 2), gains (B, 48)
+    and bit counts (B,), around the renorm boundary `edge` of a trellis
+    of `tp` steps, lane i at ndbps[i] bits a symbol. need_stop() holds
+    on the FUSED_EXACT lanes if their gains are live; FUSED_QUIET's
+    metrics stay +0 only at BPSK."""
+    nbits[:FUSED_EDGE] = edge + np.arange(FUSED_EDGE) - 8
+    nbits[FUSED_ZERO] = 0
+    nbits[FUSED_FULL], nbits[FUSED_LONG] = tp, tp + 50
+    nbits[FUSED_INF] = nbits[FUSED_QUIET] = edge + 40
+    data[FUSED_INF, 1, 10, 0] = np.inf    # an I component: every rate's
+    nbits[FUSED_NAN] = 3 * ndbps[FUSED_NAN]
+    data[FUSED_NAN, 3:] = np.nan
+    data[FUSED_QUIET, :4] = 0.0
+
+
+def fused_parity_inputs(rng, ndbps, n_sym, cadence):
+    """Random equalized symbols (len(ndbps), n_sym, 48, 2), gains (one
+    nulled subcarrier) and bit counts, with the stop edge lanes around
+    the renorm boundary in the middle of the trellis."""
     b = len(ndbps)
     data = rng.normal(0, 0.7, (b, n_sym, 48, 2)).astype(np.float32)
     gain = rng.uniform(0.2, 2.0, (b, 48)).astype(np.float32)
-    gain[:, 7] = 0.0
+    gain[FUSED_LANES:, 7] = 0.0
     nbits = rng.integers(0, n_sym * np.asarray(ndbps) + 1).astype(np.int32)
-    nbits[0] = 0
-    nbits[1] = (n_sym // 2) * ndbps[1] + ndbps[1] // 3
+    tp = n_sym * max(ndbps)
+    fused_edge_lanes(data, gain, nbits, ndbps, tp // cadence // 2 * cadence,
+                     tp)
     return data, gain, nbits
+
+
+def need_stop(nbits, cadence, tp):
+    """The first renorm boundary at least 6 steps past each frame's bits
+    (after 6 +0 pairs its 64 metrics are equal, and the renorm makes
+    them +0), or Tp: where a fused kernel stops a frame whose soft
+    values before its bits are finite and whose gains are live."""
+    nb = np.asarray(nbits, np.int64)
+    return np.minimum(-(-(nb + 6) // cadence) * cadence, tp)
+
+
+def check_fused_stops(stops, nbits, cadence, tp, what, exact) -> dict:
+    """A fused kernel's stop steps: multiples of the cadence, at most Tp,
+    at or past each frame's bits (or Tp), and on the `exact` lanes the
+    first boundary they could be. Returns their max and mean."""
+    s = stops.cpu().numpy().astype(np.int64)
+    nb = np.asarray(nbits, np.int64)
+    check(bool(((s % cadence == 0) & (s <= tp)
+                & ((s >= nb) | (s == tp))).all()),
+          f"{what}: stop steps out of their range")
+    check(bool((s[exact] == need_stop(nb[exact], cadence, tp)).all()),
+          f"{what}: a frame did not stop at the first boundary it could")
+    return {"max": int(s.max()), "mean": float(s.mean())}
 
 
 def max_err(torch, got, want) -> float:
@@ -303,6 +363,16 @@ def acs_ops_to(stops, cadence):
     to its stop (as acs_ops)."""
     s = stops.long()
     return int(s.sum()) * 64 * 6 + int((s // cadence).sum()) * 64 * 2
+
+
+def symbol_bytes_to(stops, nbits, ndbps):
+    """Symbol bytes a fused decode needs: each frame's symbols up to its
+    bit count or its stop, whichever comes first (every slot past the
+    bits is a literal +0, whatever the symbols hold); frame i at
+    ndbps[i] bits a symbol."""
+    s = stops.cpu().numpy().astype(np.int64)
+    used = np.minimum(s, np.asarray(nbits, np.int64))
+    return int((-(-used // np.asarray(ndbps, np.int64))).sum()) * SYMBOL_BYTES
 
 
 def acs_bytes(b, tp, in_bytes):
@@ -387,41 +457,55 @@ def main(argv=None) -> int:
     del llr, ref2, got, x, bits, stops
 
     ridx = np.arange(B) % 8
+    ridx[FUSED_QUIET] = 0                 # BPSK: zero symbols, +0 pairs
     ndbps = [RATES[RATE_MBPS_ORDER[r]].n_dbps for r in ridx]
-    d, g, nb = (torch.from_numpy(a).to(dev)
-                for a in fused_parity_inputs(rng, ndbps, PARITY_SYM))
+    inputs = fused_parity_inputs(rng, ndbps, PARITY_SYM, vf.MIXED_UNROLL)
+    d, g, nb = (torch.from_numpy(a).to(dev) for a in inputs)
     twin = None
     for radix, key in ((2, "fused_mixed"), (4, "fused_mixed_r4")):
-        got = vf.fused_acs_mixed(d, g, ridx, nb, radix)
+        *got, stops = vf.fused_acs_mixed_with_stops(d, g, ridx, nb, radix)
+        got = tuple(got)
         parity[key] = same_acs(torch, got, vf.fused_acs_mixed_plain(
             d, g, ridx, nb, radix), key)
         same_bits(torch, vc.traceback(*got), vc.traceback_plain(*got), key)
+        tp = PARITY_SYM * MAX_DBPS
+        parity_stops[key] = check_fused_stops(
+            stops, inputs[2], vf.MIXED_UNROLL, tp, key, FUSED_EXACT)
+        check(int(stops[FUSED_INF]) == tp,
+              f"{key}: the inf lane stopped early")
         if twin is not None:
             same_acs(torch, got, twin, f"{key} against radix 2")
         twin = got
     for m in RATE_MBPS_ORDER:
         rate = RATES[m]
-        n_sym = -(-PARITY_SYM // vf.symbols_per_block(rate)) * \
-            vf.symbols_per_block(rate)
-        d, g, nb = (torch.from_numpy(a).to(dev) for a in
-                    fused_parity_inputs(rng, [rate.n_dbps] * B, n_sym))
+        spb = vf.symbols_per_block(rate)
+        n_sym = -(-PARITY_SYM // spb) * spb
+        inputs = fused_parity_inputs(rng, [rate.n_dbps] * B, n_sym,
+                                     spb * rate.n_dbps)
+        d, g, nb = (torch.from_numpy(a).to(dev) for a in inputs)
         twin = None
         for radix, key in ((2, "fused_rate"), (4, "fused_rate_r4")):
             what = f"{key} at {m} Mbps"
-            got = vf.fused_acs_rate(d, g, rate, nb, radix)
+            *got, stops = vf.fused_acs_rate_with_stops(d, g, rate, nb, radix)
+            got = tuple(got)
             err = same_acs(torch, got, vf.fused_acs_rate_plain(
                 d, g, rate, nb, radix), what)
             same_bits(torch, vc.traceback(*got), vc.traceback_plain(*got),
                       what)
             parity[key] = max(parity.get(key, 0.0), err)
+            tp = n_sym * rate.n_dbps
+            parity_stops.setdefault(key, {})[m] = check_fused_stops(
+                stops, inputs[2], spb * rate.n_dbps, tp, what, FUSED_EXACT)
+            check(int(stops[FUSED_INF]) == tp,
+                  f"{what}: the inf lane stopped early")
             if twin is not None:
                 same_acs(torch, got, twin, f"{what} against radix 2")
             twin = got
-    del d, g, nb, got, twin
+    del d, g, nb, got, twin, stops
     emit({"phase": "kernel_parity", "B": B, "T": PARITY_T,
           "fused_symbols": PARITY_SYM, "equal": "bitwise to plain; "
           "radix 4 bitwise to radix 2", "max_abs_err": parity,
-          "acs_stop_steps": parity_stops})
+          "stop_steps": parity_stops})
 
     # ---- 4. end to end: each path with the launch counts zeroed just
     # before it and read just after
@@ -670,17 +754,21 @@ def main(argv=None) -> int:
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           shape=shape)
 
-    def stopped(key, x, nbytes, **mode):
-        """Each frame's stop step in the kernel's own run on `x`, ns per
-        step of the longest chain, and the bound of the work it needed:
-        every pair read and every word written, the operations of each
-        lane's steps up to its stop."""
-        _dec, _met, stops = vc.acs_with_stops(x, **mode)
-        st = check_stops(torch, stops, x, f"{key} at its path's inputs")
-        b_ms, b_by = bound(nbytes, acs_ops_to(stops, vc.RENORM))
+    def stopped(key, st, nbytes, nops, chain_steps):
+        """Record a kernel's stop steps `st` (max, mean), ns per step of
+        its chain (`chain_steps` long) and the bound of the work it
+        needed: `nbytes` read and written (every word written), `nops`
+        operations up to each lane's stop."""
+        b_ms, b_by = bound(nbytes, nops)
         stats[key].update(stop_step=st, bound_needed_ms=b_ms,
                           bound_needed_by=b_by,
-                          ns_per_step=stats[key]["ms"] * 1e6 / st["max"])
+                          ns_per_step=stats[key]["ms"] * 1e6 / chain_steps)
+
+    def acs_stopped(key, x, nbytes, **mode):
+        """stopped() for the ACS kernel, from its own run on `x`."""
+        _dec, _met, stops = vc.acs_with_stops(x, **mode)
+        st = check_stops(torch, stops, x, f"{key} at its path's inputs")
+        stopped(key, st, nbytes, acs_ops_to(stops, vc.RENORM), st["max"])
 
     for key, (md, radix) in MODES.items():
         x = llr if md == "float32" else q[md]
@@ -689,7 +777,7 @@ def main(argv=None) -> int:
                 lambda x=x, md=md, radix=radix: vc.acs_plain(
                     x, metric_dtype=md, radix=radix),
                 same_acs, nbytes, acs_ops(Bk, Tp, vc.RENORM), [Bk, Tp])
-        stopped(key, x, nbytes, metric_dtype=md, radix=radix)
+        acs_stopped(key, x, nbytes, metric_dtype=md, radix=radix)
     # traceback: 4 integer operations per step, plus the 63-compare
     # argmax, counted at the float32 rate; float32 metrics (the default
     # path) and int32 metrics (the int16 path's), timed
@@ -702,7 +790,8 @@ def main(argv=None) -> int:
     stats["traceback"]["int32_metrics_ms"] = cuda_ms(
         lambda: vc.traceback(dec_i, met_i), reps=5)
     # the traceback must read every decision word, so the work it needs
-    # is the whole bound; and on the fused path's words (a full sweep)
+    # is the whole bound; and on the fused path's words, which the fused
+    # kernel writes as zeros past each frame's stop
     stats["traceback"].update(bound_needed_ms=stats["traceback"]["bound_ms"],
                               bound_needed_by=stats["traceback"]["bound_by"])
     dec_f, met_f = out["fused"]
@@ -710,7 +799,7 @@ def main(argv=None) -> int:
             lambda: vc.traceback_plain(dec_f, met_f), same_bits,
             Bk * Tp * 8 + Bk * 64 * 4 + Bk * Tp, Bk * (Tp * 4 + 63),
             [Bk, Tp])
-    stats["traceback"]["fused_dec"] = stats.pop("traceback_fused")
+    stats["traceback"]["fused_dec_zero_tail"] = stats.pop("traceback_fused")
     del dec_f, met_f
     del out["llr"], out["acs"], llr, dec, met, dec_i, met_i, q
 
@@ -721,17 +810,21 @@ def main(argv=None) -> int:
     measure("window_acs", lambda: vc.acs(wllr), lambda: vc.acs_plain(wllr),
             same_acs, acs_bytes(w_b, w_t, 4), acs_ops(w_b, w_t, vc.RENORM),
             [w_b, w_t])
-    stopped("window_acs", wllr, acs_bytes(w_b, w_t, 4))
+    acs_stopped("window_acs", wllr, acs_bytes(w_b, w_t, 4))
     del wllr, wres
 
     # the rate-switched fused kernel at receive_many(fused_demap=True)'s
     # inputs: symbols, gains, bit counts and rate rows in (ridx and the
     # 8-rate bank of (2 * 216) 16-byte slot rows, n_dbps and norms);
-    # decisions and metrics out; the ACS plus the front's per-slot work
+    # decisions and metrics out; the ACS plus the front's per-slot work.
+    # The work it needed: operations up to each frame's stop, symbols up
+    # to its bits, every other input and every word. Every frame must
+    # stop at the first boundary it can
     n_sym = int(sym.shape[1])
-    mixed_bytes = (Bk * n_sym * 96 * 4 + Bk * 48 * 4 + Bk * 4 * 2
-                   + 8 * 2 * MAX_DBPS * 16 + 8 * 4 * 2
-                   + Bk * Tp * 8 + Bk * 64 * 4)
+    mixed_rest = (Bk * 48 * 4 + Bk * 4 * 2 + 8 * 2 * MAX_DBPS * 16
+                  + 8 * 4 * 2 + Bk * Tp * 8 + Bk * 64 * 4)
+    mixed_bytes = Bk * n_sym * SYMBOL_BYTES + mixed_rest
+    mixed_ndbps = [RATES[RATE_MBPS_ORDER[r]].n_dbps for r in ridx]
     mixed_ops = acs_ops(Bk, Tp, vf.MIXED_UNROLL) + \
         Bk * Tp * 2 * FRONT_OPS_PER_SLOT
     for radix, key in ((2, "fused_mixed"), (4, "fused_mixed_r4")):
@@ -740,15 +833,24 @@ def main(argv=None) -> int:
                 lambda r=radix: vf.fused_acs_mixed_plain(sym, gain, ridx,
                                                          nbits, r),
                 same_acs, mixed_bytes, mixed_ops, [Bk, n_sym, Tp])
-    del out["fused"], sym, gain
+        *_got, stops = vf.fused_acs_mixed_with_stops(sym, gain, ridx, nbits,
+                                                     radix)
+        st = check_fused_stops(stops, nbits, vf.MIXED_UNROLL, Tp,
+                               f"{key} at its path's inputs", every)
+        stopped(key, st, symbol_bytes_to(stops, nbits, mixed_ndbps)
+                + mixed_rest, acs_ops_to(stops, vf.MIXED_UNROLL)
+                + int(stops.long().sum()) * 2 * FRONT_OPS_PER_SLOT,
+                st["max"])
+    del out["fused"], sym, gain, _got, stops
 
     # the known-rate fused kernel at each of rx.receive(fused_demap=True)'s
-    # 8 launches (one lane each): times and bounds summed over them
+    # 8 launches (one lane, so one chain, each): times and bounds summed
+    # over them, ns per step over the 8 chains' steps
     with cplx.exact_fp32():
         for radix, key in ((2, "fused_rate"), (4, "fused_rate_r4")):
             total_k = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-            nbytes = nops = 0
-            shapes = []
+            nbytes = nbytes_needed = nops = nops_needed = 0
+            shapes, chain = [], []
             for k in one_per_rate:
                 _r, acq = rx._acquire_frame(caps[k], device=dev)
                 rate = RATES[acq.rate_mbps]
@@ -759,23 +861,36 @@ def main(argv=None) -> int:
                 nb1 = [acq.n_sym * rate.n_dbps]
                 tp1 = int(x1.shape[1]) * rate.n_dbps
                 cadence = vf.symbols_per_block(rate) * rate.n_dbps
-                b1 = (int(x1.shape[1]) * 96 * 4 + 48 * 4 + 4
-                      + 2 * rate.n_dbps * 16 + tp1 * 8 + 64 * 4)
+                rest1 = 48 * 4 + 4 + 2 * rate.n_dbps * 16 + tp1 * 8 + 64 * 4
+                b1 = int(x1.shape[1]) * SYMBOL_BYTES + rest1
                 o1 = acs_ops(1, tp1, cadence) + tp1 * 2 * FRONT_OPS_PER_SLOT
                 measure(key, lambda: vf.fused_acs_rate(x1, g1, rate, nb1,
                                                        radix),
                         lambda: vf.fused_acs_rate_plain(x1, g1, rate, nb1,
                                                         radix),
                         same_acs, b1, o1, [1, int(x1.shape[1]), tp1])
+                *_got, st1 = vf.fused_acs_rate_with_stops(x1, g1, rate, nb1,
+                                                          radix)
+                check_fused_stops(st1, nb1, cadence, tp1,
+                                  f"{key} at {rate.mbps} Mbps", [0])
                 for f in total_k:
                     total_k[f] = (max if f == "max_abs_err" else
                                   sum)((total_k[f], stats[key][f]))
                 nbytes += b1
+                nbytes_needed += symbol_bytes_to(st1, nb1, [rate.n_dbps]) \
+                    + rest1
                 nops += o1
+                nops_needed += acs_ops_to(st1, cadence) + \
+                    int(st1[0]) * 2 * FRONT_OPS_PER_SLOT
                 shapes.append(stats[key]["shape"])
+                chain.append(int(st1[0]))
             b_ms, b_by = bound(nbytes, nops)
             stats[key] = dict(total_k, bound_ms=b_ms, bound_by=b_by,
                               shape=shapes)
+            stopped(key, {"max": max(chain), "mean": float(np.mean(chain)),
+                          "each": chain}, nbytes_needed, nops_needed,
+                    sum(chain))
+        del _got, st1
 
     launch_path = {"acs": "receive_many", "traceback": "receive_many",
                    "fused_mixed": "receive_many_fused",

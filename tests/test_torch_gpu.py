@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import FUSED_EXACT, FUSED_INF, FUSED_LANES, FUSED_QUIET, \
+    need_stop
+from test_torch_fused_stop import _inputs
 from ziria_tpu_torch.backend import framebatch
 from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
 from ziria_tpu_torch.phy.wifi import params, rx, tx
@@ -288,7 +291,7 @@ def test_acs_stop_edge_lanes_equal_plain(cuda, md, radix):
 
 
 def test_traceback_on_full_sweep_words_equals_plain(cuda):
-    # the fused path's words (a full sweep, zero words past the bits),
+    # the fused path's words (zero past each frame's stop),
     # and random words over a trellis long enough for segments of two
     # 256-word chunks, with a zero run and a zero tail
     ridx = np.arange(16) % 8
@@ -311,3 +314,55 @@ def test_traceback_on_full_sweep_words_equals_plain(cuda):
             s = ((s & 31) << 1) | ((words[t] >> s) & 1)
         np.testing.assert_array_equal(got[f], want)
 
+
+def _fused_edge_inputs(n_sym, ndbps, edge, seed, dev):
+    """The CPU stop test's inputs (chip_smoke.py's stop edge lanes) on
+    the card, bit counts as int32."""
+    data, gain, nbits = _inputs(n_sym, ndbps, edge, seed)
+    return (data.to(dev), gain.to(dev),
+            torch.from_numpy(nbits.astype(np.int32)).to(dev))
+
+
+def _check_fused_stops(stops, nbits, cadence, tp):
+    """Each stop a multiple of the cadence, at or past the frame's bits,
+    at the first boundary 6 steps past them (where the metrics are all
+    +0) for every lane but the inf one, which sweeps to Tp."""
+    s, nb = stops.cpu().numpy(), nbits.cpu().numpy().astype(np.int64)
+    assert ((s % cadence == 0) & (s <= tp) & ((s >= nb) | (s == tp))).all()
+    assert s[FUSED_INF] == tp
+    np.testing.assert_array_equal(s[FUSED_EXACT],
+                                  need_stop(nb[FUSED_EXACT], cadence, tp))
+
+
+@pytest.mark.parametrize("radix", [2, 4])
+def test_fused_stop_edge_lanes_equal_plain(cuda, radix):
+    n_sym = 8                                   # mixed: Tp 1728, edge 864
+    ridx = np.arange(FUSED_LANES) % 8
+    ridx[FUSED_QUIET] = 0                       # BPSK: zero symbols, +0 pairs
+    ndbps = [params.RATES[params.RATE_MBPS_ORDER[r]].n_dbps for r in ridx]
+    data, gain, nbits = _fused_edge_inputs(n_sym, ndbps, 864, radix, cuda)
+    vf.reset_launches()
+    dec, met, stops = vf.fused_acs_mixed_with_stops(data, gain, ridx, nbits,
+                                                    radix)
+    torch.cuda.synchronize()
+    assert vf.LAUNCHES == _only(vf, **{vf._key("fused_mixed", radix): 1})
+    _same_acs((dec, met), vf.fused_acs_mixed_plain(data, gain, ridx, nbits,
+                                                   radix))
+    assert torch.equal(vc.traceback(dec, met), vc.traceback_plain(dec, met))
+    _check_fused_stops(stops, nbits, vf.MIXED_UNROLL, n_sym * 216)
+    for mbps, n_sym, edge in ((6, 36, 432), (12, 18, 480), (54, 8, 864)):
+        rate = params.RATES[mbps]
+        data, gain, nbits = _fused_edge_inputs(
+            n_sym, [rate.n_dbps] * FUSED_LANES, edge, mbps + radix, cuda)
+        vf.reset_launches()
+        dec, met, stops = vf.fused_acs_rate_with_stops(data, gain, rate,
+                                                       nbits, radix)
+        torch.cuda.synchronize()
+        assert vf.LAUNCHES == _only(vf, **{vf._key("fused_rate", radix): 1})
+        _same_acs((dec, met), vf.fused_acs_rate_plain(data, gain, rate,
+                                                      nbits, radix))
+        assert torch.equal(vc.traceback(dec, met),
+                           vc.traceback_plain(dec, met))
+        _check_fused_stops(stops, nbits,
+                           vf.symbols_per_block(rate) * rate.n_dbps,
+                           n_sym * rate.n_dbps)

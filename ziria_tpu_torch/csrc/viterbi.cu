@@ -41,25 +41,32 @@
 // where two radix-2 steps take eight, and the integer metrics take exact
 // integer multiply-adds; neither shortens the chain much (PERF.md).
 //
-// acs_kernel shortens the chain itself, exactly. A batch pads every
-// frame with erasures (zero soft pairs) up to a common Tp: 110,592 steps
-// on the 1000-byte mixed-rate batch, of which at most 8,208 carry bits.
-// Once every later pair is zero, a candidate is fma(+-1, 0, m) = m, so
-// each metric becomes the max of its two predecessors, and since the K=7
-// trellis joins every state to every state in 6 steps, all 64 metrics
-// are equal 6 steps later and the renorm makes them m - m = +0. From a
-// renorm that leaves all 64 metrics +0.0 (bitwise; integer 0) with only
-// zero pairs after it, every candidate is +0 + +-0 = +0 (round to
-// nearest), every decision word 0 and the final metrics +0: the full
-// sweep's output, which the kernel writes without running it. The kernel
-// learns "only zero pairs after it" from the data (three warps scan the
-// frame backward while the fourth runs the chain), so no caller can make
-// the shortcut wrong; a -0.0, NaN or inf metric simply never stops early.
-// The chain takes its pairs from shared memory, staged one 64-step block
-// ahead by coalesced loads, and writes its decision words once per block
-// as 512 coalesced bytes. traceback_kernel cuts its chain into segments
-// (see there). The windowed decode runs acs_kernel over B * ceil(T /
-// window) shorter lanes, most of which stop at their first renorm.
+// Every ACS kernel shortens the chain itself, exactly. A batch pads
+// every frame with erasures (zero soft pairs) up to a common Tp: 110,592
+// steps on the 1000-byte mixed-rate batch, of which at most 8,208 carry
+// bits. Once every later pair is zero, a candidate is fma(+-1, 0, m) =
+// m, so each metric becomes the max of its two predecessors, and since
+// the K=7 trellis joins every state to every state in 6 steps, all 64
+// metrics are equal 6 steps later and the renorm makes them m - m = +0.
+// From a renorm that leaves all 64 metrics +0.0 (bitwise; integer 0)
+// with only +0 pairs after it, every candidate is +0 + +-0 = +0 (round
+// to nearest), every decision word 0 and the final metrics +0: the full
+// sweep's output, which the kernel writes without running it; a -0.0,
+// NaN or inf metric simply never stops early. acs_kernel learns "only
+// zero pairs after it" from the data (three warps scan the frame
+// backward while the fourth runs the chain), so no caller can make the
+// shortcut wrong. The fused kernels know it from the frame's bit count:
+// their front makes every pair at or past it a literal +0, whatever the
+// symbols hold. One chain routine (acs_chain) serves all of them; what
+// differs is where its pairs come from. acs_kernel's chain stages each
+// 64-step block itself, one block ahead, by coalesced loads; the fused
+// kernels' three other warps compute each renorm stage's depunctured
+// pairs into shared memory one stage ahead, so the front's dependent
+// loads never sit on the chain. Either way the decision words collect
+// in shared memory and leave as coalesced stores. traceback_kernel cuts
+// its chain into segments (see there). The windowed decode runs
+// acs_kernel over B * ceil(T / window) shorter lanes, most of which stop
+// at their first renorm.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,13 +77,14 @@ constexpr int kStates = 64;
 constexpr int kRenorm = 64;          // ACS steps between renorms (Pallas UNROLL)
 constexpr int kSub = 12;             // fused front sub-block: gcd of all n_dbps
 constexpr int kMixedRenorm = 72;     // mixed fused cadence (Pallas MIXED_UNROLL)
+constexpr int kMaxCadence = 216;     // longest fused renorm stage (54 Mbps)
 constexpr int kBankSlots = 2 * 216;  // slots per rate row of the bank
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kAcsThreads = 128;     // ACS block: the chain and the scan
-constexpr int kScanThreads = kAcsThreads - 32;
+constexpr int kAcsThreads = 128;     // ACS block: the chain and its helpers
+constexpr int kScanThreads = kAcsThreads - 32;  // warps 1-3: scan or front
 constexpr int kScanUnroll = 16;      // loads in flight per scanning thread
-constexpr int kTailUnknown = 0x7fffffff;  // the scan's result before it ends
+constexpr int kTailUnknown = 0x7fffffff;  // a step not published yet
 constexpr int kChunk = 256;          // traceback steps staged at a time
 constexpr int kTbWarps = 16;         // traceback block, at most
 constexpr int kMaxSegments = 2048;   // traceback segments a frame, at most
@@ -107,6 +115,7 @@ struct F32 {
   using Step = float2;
   struct Edge { float a, b; };
   static constexpr float kStart = kNeg;  // every state but 0
+  static constexpr bool kWordsFirst = true;  // see acs_chain
 
   __device__ __forceinline__ static Edge edge(int state, int d) {
     return {edge_coeff(state, d, kG0), edge_coeff(state, d, kG1)};
@@ -144,6 +153,7 @@ struct Int {
   using Step = int2;
   struct Edge { int a, b; };
   static constexpr int kStart = Lo;
+  static constexpr bool kWordsFirst = false;  // see acs_chain
 
   __device__ __forceinline__ static Edge edge(int state, int d) {
     return {(int)edge_coeff(state, d, kG0), (int)edge_coeff(state, d, kG1)};
@@ -330,26 +340,98 @@ __device__ void scan_tail(const typename M::In* __restrict__ x, int Tp,
   if (tid == 0) *tail = found;
 }
 
-// Warp 0 of an ACS block: the sweep, radix 2 (one step an iteration) or
-// 4 (a pair), renorm every 64 steps. Each 64-step block takes its pairs
-// from shared memory (loaded, coalesced, while the block before ran)
-// and leaves its 64 decision words there for one 512-byte store. After
-// each renorm the warp stops if the scan has published a last live step
-// before the boundary and all 64 metrics are +0 (see the top of the
-// file). Returns the step where the sweep ended.
-template <class M, int Radix>
-__device__ int acs_chain(const typename M::In* __restrict__ x,
-                         u64* __restrict__ out, typename M::T* __restrict__ met,
-                         int Tp, const volatile int* tail,
-                         typename M::In* s_x, u64* s_w) {
+// `N` trellis steps, fully unrolled, on the step values x[0..N) from
+// shared memory, radix 2 (one step an iteration) or 4 (a pair); lane 0
+// leaves each step's decision word in w[0..N). Fully unrolled: with a
+// partial unroll nvcc guarded every shuffle and ballot with a divergence
+// branch, and the radix-2 sweep ran 12 times slower.
+template <class M, int Radix, int N>
+__device__ __forceinline__ void sweep(const Lane<M>& c, typename M::T& m_lo,
+                                      typename M::T& m_hi,
+                                      const typename M::In* x, u64* w) {
+  if constexpr (Radix == 2) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const u64 d = acs_step(c, m_lo, m_hi, M::step(x[j]));
+      if (threadIdx.x == 0) w[j] = d;
+    }
+  } else {
+    static_assert(N % 2 == 0, "a radix-4 sweep takes whole pairs");
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      u64 w1, w2;
+      acs_pair(c, m_lo, m_hi, M::step(x[j]), M::step(x[j + 1]), w1, w2);
+      if (threadIdx.x == 0) store_pair(w + j, w1, w2);
+    }
+  }
+}
+
+// Warp 0 of an ACS block: the sweep of one frame, one renorm stage
+// (`feed.cadence()` steps, a multiple of Feed::kUnroll) at a time. Each
+// stage takes its pairs from shared memory and leaves its decision words
+// there (`feed` says where, and stores them); after each renorm the warp
+// stops if the stage ended past the frame's live pairs (`feed.past`) and
+// all 64 metrics are +0 (see the top of the file), or at Tp. Returns the
+// step where the sweep ended. The chain's speed hangs on where the
+// stage's words leave (PERF.md): before the renorm for float32 metrics
+// (M::kWordsFirst) and after it for the integer ones, the order nvcc
+// schedules fastest for each; after the stop vote, the integer chains
+// ran far slower.
+template <class M, int Radix, class Feed>
+__device__ int acs_chain(Feed& feed, typename M::T* __restrict__ met,
+                         int Tp) {
   using T = typename M::T;
   const int lane = threadIdx.x;
   const Lane<M> c(lane);
   T m_lo = lane == 0 ? T(0) : M::kStart;
   T m_hi = M::kStart;
-  typename M::In p_lo = x[lane], p_hi = x[lane + 32];
+  const int cadence = feed.cadence();
   int t0 = 0;
   for (;;) {
+    const typename M::In* x = feed.pairs(t0);
+    u64* w = feed.words();
+#pragma unroll 1
+    for (int j = 0; j < cadence; j += Feed::kUnroll)
+      sweep<M, Radix, Feed::kUnroll>(c, m_lo, m_hi, x + j, w + j);
+    if constexpr (M::kWordsFirst) feed.swept(t0);
+    renorm<M>(m_lo, m_hi);
+    if constexpr (!M::kWordsFirst) feed.swept(t0);
+    const int t1 = t0 + cadence;
+    const bool stop =
+        t1 >= Tp || __all_sync(kFull, feed.past(t1) && M::plus_zero(m_lo) &&
+                                          M::plus_zero(m_hi));
+    feed.finish(t1, stop);
+    t0 = t1;
+    if (stop) break;
+  }
+  met[lane] = m_lo;
+  met[lane + 32] = m_hi;
+  return t0;
+}
+
+// acs_kernel's feed: the chain stages each 64-step block's pairs itself
+// (loaded, coalesced, while the block before ran) and stores the block's
+// 64 decision words as one 512-byte store. A block ends past the live
+// pairs once the scan has published a last live step before its end.
+template <class M>
+struct StagedFeed {
+  using In = typename M::In;
+  static constexpr int kUnroll = kRenorm;  // steps a sweep
+  const In* __restrict__ x;
+  u64* __restrict__ out;
+  In* s_x;
+  u64* s_w;
+  const volatile int* tail;
+  int Tp, lane, last;
+  In p_lo, p_hi;
+
+  __device__ StagedFeed(const In* x_, u64* out_, In* s_x_, u64* s_w_,
+                        const volatile int* tail_, int Tp_)
+      : x(x_), out(out_), s_x(s_x_), s_w(s_w_), tail(tail_), Tp(Tp_),
+        lane(threadIdx.x), last(kTailUnknown), p_lo(x_[threadIdx.x]),
+        p_hi(x_[threadIdx.x + 32]) {}
+  __device__ static constexpr int cadence() { return kRenorm; }
+  __device__ const In* pairs(int t0) {
     __syncwarp();                   // the block before has read s_x, s_w
     s_x[lane] = p_lo;
     s_x[lane + 32] = p_hi;
@@ -358,36 +440,31 @@ __device__ int acs_chain(const typename M::In* __restrict__ x,
       p_lo = x[t0 + kRenorm + lane];
       p_hi = x[t0 + kRenorm + lane + 32];
     }
-    const int last = *tail;
-    // the 64 steps between renorms fully unrolled: with a partial unroll
-    // nvcc guarded every shuffle and ballot with a divergence branch, and
-    // the radix-2 sweep ran 12 times slower
-    if constexpr (Radix == 2) {
-#pragma unroll
-      for (int j = 0; j < kRenorm; ++j) {
-        const u64 w = acs_step(c, m_lo, m_hi, M::step(s_x[j]));
-        if (lane == 0) s_w[j] = w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kRenorm; j += 2) {
-        u64 w1, w2;
-        acs_pair(c, m_lo, m_hi, M::step(s_x[j]), M::step(s_x[j + 1]), w1, w2);
-        if (lane == 0) store_pair(s_w + j, w1, w2);
-      }
-    }
-    renorm<M>(m_lo, m_hi);
+    last = *tail;
+    return s_x;
+  }
+  __device__ u64* words() const { return s_w; }
+  __device__ bool past(int t1) const { return t1 > last; }
+  __device__ void swept(int t0) {
     __syncwarp();
     reinterpret_cast<ulonglong2*>(out + t0)[lane] =
         reinterpret_cast<const ulonglong2*>(s_w)[lane];
-    t0 += kRenorm;
-    if (t0 >= Tp || __all_sync(kFull, t0 > last && M::plus_zero(m_lo) &&
-                                          M::plus_zero(m_hi)))
-      break;
   }
-  met[lane] = m_lo;
-  met[lane + 32] = m_hi;
-  return t0;
+  __device__ void finish(int, bool) {}
+};
+
+// All kAcsThreads threads of a block meet here (named barrier 2).
+__device__ __forceinline__ void block_barrier() {
+  asm volatile("bar.sync 2, %0;" ::"n"(kAcsThreads) : "memory");
+}
+
+// The zero decision words from `stop` (a multiple of an even cadence:
+// 16-byte aligned) to Tp, by every thread of the block.
+__device__ __forceinline__ void zero_tail(u64* __restrict__ out, int stop,
+                                          int Tp) {
+  ulonglong2* __restrict__ zero = reinterpret_cast<ulonglong2*>(out + stop);
+  for (int i = threadIdx.x; i < (Tp - stop) / 2; i += kAcsThreads)
+    zero[i] = make_ulonglong2(0ull, 0ull);
 }
 
 // The ACS sweep of one frame per block of 4 warps: warp 0 runs the
@@ -413,102 +490,156 @@ acs_kernel(const typename M::In* __restrict__ llr, u64* __restrict__ dec,
   }
   __syncthreads();
   if (threadIdx.x < 32) {
+    StagedFeed<M> feed(x, out, s_x, s_w, &s_tail, Tp);
     const int stop = acs_chain<M, Radix>(
-        x, out, metrics + (size_t)frame * kStates, Tp, &s_tail, s_x, s_w);
+        feed, metrics + (size_t)frame * kStates, Tp);
     if (threadIdx.x == 0) s_stop = stop;
   } else {
     scan_tail<M>(x, Tp, threadIdx.x - 32, &s_hit, &s_tail);
   }
   __syncthreads();
-  const int stop = s_stop;          // a multiple of 64: 16-byte aligned
-  ulonglong2* __restrict__ zero = reinterpret_cast<ulonglong2*>(out + stop);
-  for (int i = threadIdx.x; i < (Tp - stop) / 2; i += kAcsThreads)
-    zero[i] = make_ulonglong2(0ull, 0ull);
+  const int stop = s_stop;          // a multiple of 64
+  zero_tail(out, stop, Tp);
   if (stops != nullptr && threadIdx.x == 0) stops[frame] = stop;
 }
 
-// The LLR of one depunctured slot of the fused front end: slot `lane`
-// (< 2 * kSub) of the sub-block starting at step s0. Arithmetic in the
-// order of the reference's demap(): x * norm, the level formula, then
-// (f * g) * valid, and an exact 0 at or past the frame's bit count.
-// The _rn intrinsics keep nvcc from contracting any of it into an FMA.
-__device__ __forceinline__ float front_slot(const float* __restrict__ sym,
-                                            const float* __restrict__ gain,
-                                            const int4* __restrict__ table,
-                                            int n_dbps, float norm, int nbits,
-                                            int n_sym, int s0, int lane) {
-  // a symbol read past n_sym clamps, as viterbi_pallas.py:1232 does;
-  // every such step lies past nbits and masks to 0
-  const int k = min(s0 / n_dbps, n_sym - 1);
-  const int4 e = __ldg(table + 2 * (s0 % n_dbps) + lane);
-  const float xs = __fmul_rn(__ldg(sym + (size_t)k * 96 + e.x), norm);
-  const float ax = fabsf(xs);
-  const float f = e.y == 0   ? xs
-                  : e.y == 1 ? __fsub_rn((float)e.z, ax)
-                             : __fsub_rn(2.0f, fabsf(__fsub_rn(ax, 4.0f)));
-  const float llr =
-      __fmul_rn(__fmul_rn(f, __ldg(gain + (e.x >> 1))), (float)e.w);
-  return s0 + (lane >> 1) < nbits ? llr : 0.0f;
+// The fused front end of one frame: the LLR of depunctured slot `parity`
+// of trellis step s. Arithmetic in the order of the reference's demap():
+// x * norm, the level formula, then (f * g) * valid, and an exact +0 at
+// or past the frame's bit count. The _rn intrinsics keep nvcc from
+// contracting any of it into an FMA.
+struct Front {
+  const float* __restrict__ sym;    // (n_sym, 96)
+  const float* __restrict__ gain;   // (48)
+  const int4* __restrict__ table;   // (2 * n_dbps) slot rows of the rate
+  int n_dbps, nbits, n_sym;
+  float norm;
+
+  __device__ __forceinline__ float slot(int s, int parity) const {
+    // a symbol read past n_sym clamps, as viterbi_pallas.py:1232 does;
+    // every such step lies past nbits and masks to 0
+    const int k = min(s / n_dbps, n_sym - 1);
+    const int4 e = __ldg(table + 2 * (s % n_dbps) + parity);
+    const float xs = __fmul_rn(__ldg(sym + (size_t)k * 96 + e.x), norm);
+    const float ax = fabsf(xs);
+    const float f = e.y == 0   ? xs
+                    : e.y == 1 ? __fsub_rn((float)e.z, ax)
+                               : __fsub_rn(2.0f, fabsf(__fsub_rn(ax, 4.0f)));
+    const float llr =
+        __fmul_rn(__fmul_rn(f, __ldg(gain + (e.x >> 1))), (float)e.w);
+    return s < nbits ? llr : 0.0f;
+  }
+
+  // Thread `tid` of warps 1-3: its slots of the stage at t0 (`cadence`
+  // steps, 2 slots a step) into dst, as float2 pairs, two slots at a
+  // time with their loads in flight together (an index past the stage
+  // clamps to its last slot). The stage before takes the chain at
+  // least 72 steps, far longer than these few rounds of loads.
+  __device__ __forceinline__ void stage(float* dst, int t0, int cadence,
+                                        int tid) const {
+    const int n = 2 * cadence;
+#pragma unroll 1
+    for (int p = tid; p < n; p += 2 * kScanThreads) {
+      const int q = min(p + kScanThreads, n - 1);
+      const float v = slot(t0 + (p >> 1), p & 1);
+      const float w = slot(t0 + (q >> 1), q & 1);
+      dst[p] = v;
+      if (p + kScanThreads < n) dst[q] = w;
+    }
+  }
+};
+
+// The fused kernels' feed, on the chain's side: stage k's pairs and
+// words live in buffer k & 1, filled and drained by warps 1-3
+// (fused_helpers); chain and helpers meet once per stage, after which
+// the chain reads the stage the helpers just wrote, and they write the
+// one it just read. A stage ends past the live pairs once it ends at or
+// past the frame's bit count. The chain publishes its stop in *s_stop
+// before the stage's barrier, so the helpers leave with it.
+struct FrontFeed {
+  static constexpr int kUnroll = kSub;
+  float2 (*s_x)[kMaxCadence];
+  u64 (*s_w)[kMaxCadence];
+  int* s_stop;
+  int cadence_, nbits, k;
+
+  __device__ int cadence() const { return cadence_; }
+  __device__ const float2* pairs(int) const { return s_x[k & 1]; }
+  __device__ u64* words() const { return s_w[k & 1]; }
+  __device__ bool past(int t1) const { return t1 >= nbits; }
+  __device__ void swept(int) {}
+  __device__ void finish(int t1, bool stop) {
+    if (stop && threadIdx.x == 0) *s_stop = t1;
+    block_barrier();
+    ++k;
+  }
+};
+
+// Warps 1-3 of a fused block: stage 0's pairs before the chain starts,
+// then during stage k the words of stage k - 1 out (coalesced 16-byte
+// stores) and the pairs of stage k + 1 in, until the chain's stop.
+__device__ __forceinline__ void fused_helpers(
+    const Front& fr, float2 (*s_x)[kMaxCadence], u64 (*s_w)[kMaxCadence],
+    const volatile int* s_stop, u64* __restrict__ out, int Tp, int cadence) {
+  const int tid = threadIdx.x - 32;
+  auto drain = [&](int k) {
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(s_w[k & 1]);
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + k * cadence);
+    for (int i = tid; i < cadence / 2; i += kScanThreads) dst[i] = src[i];
+  };
+  fr.stage(reinterpret_cast<float*>(s_x[0]), 0, cadence, tid);
+  block_barrier();
+  for (int k = 0;; ++k) {
+    const int t1 = (k + 1) * cadence;
+    if (k > 0) drain(k - 1);
+    if (t1 < Tp)
+      fr.stage(reinterpret_cast<float*>(s_x[(k + 1) & 1]), t1, cadence, tid);
+    block_barrier();
+    if (*s_stop == t1) {
+      drain(k);
+      return;
+    }
+  }
 }
 
-// The fused decode of one frame (one warp): per 12-step sub-block,
-// lanes 0-23 each compute one slot's LLR in a register, and ACS step jj
-// takes its pair from lanes 2jj and 2jj + 1 by shuffle (a radix-4 pair
-// jj its four values from lanes 4jj..4jj + 3), so the LLRs never reach
-// memory. Renorm at the end of every `cadence` steps (Tp is a multiple
-// of it, it a multiple of kSub; a sub-block holds six whole pairs).
+// The fused decode of one frame per block of 4 warps: warps 1-3 compute
+// the depunctured soft pairs of each renorm stage (`cadence` steps, a
+// multiple of kSub, at most kMaxCadence; Tp a multiple of it) one stage
+// ahead and store the decision words one stage behind, while warp 0 runs
+// the chain; the chain stops after the first renorm at or past the
+// frame's bit count that leaves every metric +0, and all four warps
+// write the zero words from there to Tp. Bound: the chain up to the
+// stop, as acs_kernel (the front's ~8 float operations and three loads
+// a slot run beside it). `stops` (may be null) gets the stop step.
 template <int Radix>
-__device__ __forceinline__ void fused_acs_frame(
-    const float* __restrict__ sym, const float* __restrict__ gain,
-    const int4* __restrict__ table, int n_dbps, float norm, int nbits,
-    int n_sym, int Tp, int cadence, u64* __restrict__ dec,
-    float* __restrict__ metrics) {
-  const int lane = threadIdx.x;
-  const Lane<F32> c(lane);
-  float m_lo = lane == 0 ? 0.0f : kNeg;
-  float m_hi = kNeg;
-  for (int t0 = 0; t0 < Tp; t0 += cadence) {
-    for (int s0 = t0; s0 < t0 + cadence; s0 += kSub) {
-      const float llr =
-          lane < 2 * kSub
-              ? front_slot(sym, gain, table, n_dbps, norm, nbits, n_sym, s0,
-                           lane)
-              : 0.0f;
-      if constexpr (Radix == 2) {
-#pragma unroll
-        for (int jj = 0; jj < kSub; ++jj) {
-          const float2 l = make_float2(__shfl_sync(kFull, llr, 2 * jj),
-                                       __shfl_sync(kFull, llr, 2 * jj + 1));
-          const u64 w = acs_step(c, m_lo, m_hi, l);
-          if (lane == 0) dec[s0 + jj] = w;
-        }
-      } else {
-#pragma unroll
-        for (int jj = 0; jj < kSub / 2; ++jj) {
-          const float2 l1 = make_float2(__shfl_sync(kFull, llr, 4 * jj),
-                                        __shfl_sync(kFull, llr, 4 * jj + 1));
-          const float2 l2 = make_float2(__shfl_sync(kFull, llr, 4 * jj + 2),
-                                        __shfl_sync(kFull, llr, 4 * jj + 3));
-          u64 w1, w2;
-          acs_pair(c, m_lo, m_hi, l1, l2, w1, w2);
-          if (lane == 0) store_pair(dec + s0 + 2 * jj, w1, w2);
-        }
-      }
-    }
-    renorm<F32>(m_lo, m_hi);
+__device__ __forceinline__ void fused_acs_block(const Front& fr, int Tp,
+                                                int cadence,
+                                                u64* __restrict__ out,
+                                                float* __restrict__ met,
+                                                int* __restrict__ stop_out) {
+  __shared__ __align__(16) float2 s_x[2][kMaxCadence];
+  __shared__ __align__(16) u64 s_w[2][kMaxCadence];
+  __shared__ int s_stop;
+  if (threadIdx.x == 0) s_stop = kTailUnknown;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    FrontFeed feed{s_x, s_w, &s_stop, cadence, fr.nbits, 0};
+    block_barrier();                // stage 0's pairs are in
+    acs_chain<F32, Radix>(feed, met, Tp);
+  } else {
+    fused_helpers(fr, s_x, s_w, &s_stop, out, Tp, cadence);
   }
-  metrics[lane] = m_lo;
-  metrics[lane + 32] = m_hi;
+  const int stop = *(volatile int*)&s_stop;  // set before the last barrier
+  zero_tail(out, stop, Tp);
+  if (stop_out != nullptr && threadIdx.x == 0) *stop_out = stop;
 }
 
 // Replaces _make_mixed_fused_acs_kernel (viterbi_pallas.py:1174).
-// Mixed-rate batch: frame f runs at rate ridx[f] (warp-uniform, so a
-// warp reads only its own row of the bank), over the bucket-maximal
-// trellis Tp = n_sym * 216, renormalizing every 72 steps. Bound: the
-// frame's serial ACS chain, as acs_kernel; the front's loads and
-// ~8 float operations a slot run on lanes 0-23 once per 12 steps.
+// Mixed-rate batch: frame f runs at rate ridx[f] (block-uniform, so a
+// block reads only its own row of the bank), over the bucket-maximal
+// trellis Tp = n_sym * 216, renormalizing every 72 steps.
 template <int Radix>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kAcsThreads)
 fused_acs_mixed_kernel(const float* __restrict__ sym,
                        const float* __restrict__ gain,
                        const int* __restrict__ nbits,
@@ -516,33 +647,37 @@ fused_acs_mixed_kernel(const float* __restrict__ sym,
                        const int4* __restrict__ bank,
                        const int* __restrict__ ndbps,
                        const float* __restrict__ norms, u64* __restrict__ dec,
-                       float* __restrict__ metrics, int n_sym, int Tp) {
+                       float* __restrict__ metrics, int* __restrict__ stops,
+                       int n_sym, int Tp) {
   const int f = blockIdx.x;
   const int r = __ldg(ridx + f);
-  fused_acs_frame<Radix>(sym + (size_t)f * n_sym * 96, gain + (size_t)f * 48,
-                         bank + (size_t)r * kBankSlots, __ldg(ndbps + r),
-                         __ldg(norms + r), __ldg(nbits + f), n_sym, Tp,
-                         kMixedRenorm, dec + (size_t)f * Tp,
-                         metrics + (size_t)f * kStates);
+  const Front fr{sym + (size_t)f * n_sym * 96, gain + (size_t)f * 48,
+                 bank + (size_t)r * kBankSlots, __ldg(ndbps + r),
+                 __ldg(nbits + f), n_sym, __ldg(norms + r)};
+  fused_acs_block<Radix>(fr, Tp, kMixedRenorm, dec + (size_t)f * Tp,
+                         metrics + (size_t)f * kStates,
+                         stops == nullptr ? nullptr : stops + f);
 }
 
 // Replaces _make_fused_acs_kernel (viterbi_pallas.py:893).
 // Known-rate batch: every frame at the rate of `table`, Tp = n_sym *
 // n_dbps with n_sym a multiple of spb, renormalizing every spb * n_dbps
-// steps (`cadence`). Bound: as fused_acs_mixed_kernel.
+// steps (`cadence`).
 template <int Radix>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kAcsThreads)
 fused_acs_rate_kernel(const float* __restrict__ sym,
                       const float* __restrict__ gain,
                       const int* __restrict__ nbits,
                       const int4* __restrict__ table, int n_dbps, float norm,
                       u64* __restrict__ dec, float* __restrict__ metrics,
-                      int n_sym, int Tp, int cadence) {
+                      int* __restrict__ stops, int n_sym, int Tp,
+                      int cadence) {
   const int f = blockIdx.x;
-  fused_acs_frame<Radix>(sym + (size_t)f * n_sym * 96, gain + (size_t)f * 48,
-                         table, n_dbps, norm, __ldg(nbits + f), n_sym, Tp,
-                         cadence, dec + (size_t)f * Tp,
-                         metrics + (size_t)f * kStates);
+  const Front fr{sym + (size_t)f * n_sym * 96, gain + (size_t)f * 48, table,
+                 n_dbps, __ldg(nbits + f), n_sym, norm};
+  fused_acs_block<Radix>(fr, Tp, cadence, dec + (size_t)f * Tp,
+                         metrics + (size_t)f * kStates,
+                         stops == nullptr ? nullptr : stops + f);
 }
 
 // One traceback step back over decision word w: the predecessor of
@@ -797,13 +932,21 @@ int ziria_traceback(const void* dec, const void* metrics, void* bits, int B,
                    : launch_traceback<float>(dec, metrics, bits, B, Tp, s));
 }
 
+// Both fused entry points: stops null or (B,) int32, each frame's stop
+// step (a multiple of the cadence, Tp for a full sweep); dec 16-byte
+// aligned. A cadence is a multiple of kSub, so even, and every stop and
+// Tp * 8 bytes are multiples of 16: the zero tail's stores are aligned.
+static_assert(kSub % 2 == 0 && kMixedRenorm % kSub == 0 &&
+                  kMaxCadence % kSub == 0,
+              "fused cadences must be even multiples of the sub-block");
+
 // ridx (B,) int32 in [0, 8); bank (8, 432, 4) int32; ndbps (8,) int32;
 // norms (8,) float32; Tp = n_sym * 216; radix 2 or 4.
 int ziria_fused_acs_mixed(const void* sym, const void* gain, const void* nbits,
                           const void* ridx, const void* bank,
                           const void* ndbps, const void* norms, void* dec,
-                          void* metrics, int B, int n_sym, int Tp, int radix,
-                          int device, void* stream) {
+                          void* metrics, void* stops, int B, int n_sym,
+                          int Tp, int radix, int device, void* stream) {
   if (B <= 0 || n_sym <= 0 || Tp != n_sym * 216 ||
       (radix != 2 && radix != 4) || ((uintptr_t)dec & 15))
     return (int)cudaErrorInvalidValue;
@@ -811,32 +954,35 @@ int ziria_fused_acs_mixed(const void* sym, const void* gain, const void* nbits,
   if (err != cudaSuccess) return (int)err;
   auto kernel = radix == 4 ? fused_acs_mixed_kernel<4>
                            : fused_acs_mixed_kernel<2>;
-  kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
+  kernel<<<B, kAcsThreads, 0, (cudaStream_t)stream>>>(
       (const float*)sym, (const float*)gain, (const int*)nbits,
       (const int*)ridx, (const int4*)bank, (const int*)ndbps,
-      (const float*)norms, (u64*)dec, (float*)metrics, n_sym, Tp);
+      (const float*)norms, (u64*)dec, (float*)metrics, (int*)stops, n_sym,
+      Tp);
   return (int)cudaGetLastError();
 }
 
 // table (2 * n_dbps, 4) int32, 16-byte aligned; Tp = n_sym * n_dbps, a
-// multiple of `cadence`, itself a multiple of 12; radix 2 or 4.
+// multiple of `cadence`, itself a multiple of 12 and at most 216; radix
+// 2 or 4.
 int ziria_fused_acs_rate(const void* sym, const void* gain, const void* nbits,
                          const void* table, void* dec, void* metrics,
-                         int n_dbps, float norm, int B, int n_sym, int Tp,
-                         int cadence, int radix, int device, void* stream) {
+                         void* stops, int n_dbps, float norm, int B,
+                         int n_sym, int Tp, int cadence, int radix,
+                         int device, void* stream) {
   if (B <= 0 || n_sym <= 0 || n_dbps <= 0 || n_dbps % kSub ||
       Tp != n_sym * n_dbps || cadence <= 0 || cadence % kSub ||
-      Tp % cadence || ((uintptr_t)table & 15) || (radix != 2 && radix != 4) ||
-      ((uintptr_t)dec & 15))
+      cadence > kMaxCadence || Tp % cadence || ((uintptr_t)table & 15) ||
+      (radix != 2 && radix != 4) || ((uintptr_t)dec & 15))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   auto kernel = radix == 4 ? fused_acs_rate_kernel<4>
                            : fused_acs_rate_kernel<2>;
-  kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
+  kernel<<<B, kAcsThreads, 0, (cudaStream_t)stream>>>(
       (const float*)sym, (const float*)gain, (const int*)nbits,
-      (const int4*)table, n_dbps, norm, (u64*)dec, (float*)metrics, n_sym,
-      Tp, cadence);
+      (const int4*)table, n_dbps, norm, (u64*)dec, (float*)metrics,
+      (int*)stops, n_sym, Tp, cadence);
   return (int)cudaGetLastError();
 }
 

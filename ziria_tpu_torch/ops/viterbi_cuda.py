@@ -99,12 +99,12 @@ def _lib():
         # dec, metrics, bits, B, Tp, int_metrics, device, stream
         (lib.ziria_traceback, [ptr] * 3 + [i32] * 4 + [ptr]),
         # sym, gain, nbits, ridx, bank, ndbps, norms, dec, metrics,
-        # B, n_sym, Tp, radix, device, stream (ops/viterbi_fused)
-        (lib.ziria_fused_acs_mixed, [ptr] * 9 + [i32] * 5 + [ptr]),
-        # sym, gain, nbits, table, dec, metrics, n_dbps, norm, B,
+        # stops, B, n_sym, Tp, radix, device, stream (ops/viterbi_fused)
+        (lib.ziria_fused_acs_mixed, [ptr] * 10 + [i32] * 5 + [ptr]),
+        # sym, gain, nbits, table, dec, metrics, stops, n_dbps, norm, B,
         # n_sym, Tp, cadence, radix, device, stream
         (lib.ziria_fused_acs_rate,
-         [ptr] * 6 + [i32, ctypes.c_float] + [i32] * 6 + [ptr]),
+         [ptr] * 7 + [i32, ctypes.c_float] + [i32] * 6 + [ptr]),
     )
     for fn, sig in sigs:
         fn.argtypes = sig

@@ -19,7 +19,7 @@ kernels hold the same facts as one-hot matrices for the MXU;
 tests pin them equal.
 
 Two kernels share one device routine (csrc/viterbi.cu
-``fused_acs_frame<Radix>``), each with a wrapper, a plain version and a
+``fused_acs_block<Radix>``), each with a wrapper, a plain version and a
 launch count per radix (radix 4 takes two ACS steps as one butterfly,
 bit-identical to radix 2; the sub-block's 12 steps are six whole
 pairs):
@@ -40,14 +40,21 @@ pairs):
 Both write ``viterbi_cuda.acs``'s decisions and final metrics, so
 ``viterbi_cuda.traceback`` finishes either decode: the Pallas
 traceback instances at :1006 and :1326 walk the same words.
+``fused_acs_mixed_with_stops`` and ``fused_acs_rate_with_stops`` also
+return the step at which each frame's sweep ended.
 
 Bits: under erasure tails path metrics tie exactly, so the renorm
 cadence and the arithmetic order decide bits. Kernel and plain version
 compute ``x * norm``, the level formula, ``(f * g) * valid`` and the
 exact 0 past each frame's bit count in that order, then the ACS of
 ``viterbi_cuda``. On the card, what bounds them is the ACS chain
-(see csrc/viterbi.cu); the front adds about a dozen float operations
-per slot on lanes that otherwise wait on the shuffles.
+(see csrc/viterbi.cu). Every pair at or past a frame's bit count is a
+literal +0, so the kernels stop each chain, exactly, at the first
+renorm at or past the bit count that leaves all 64 metrics +0 (the full
+sweep writes only zero words and +0 metrics from there) and write the
+zero words themselves; three more warps compute each renorm stage's
+pairs one stage ahead, off the chain. The plain versions sweep every
+step: they are the yardstick the kernels are held to.
 """
 
 from __future__ import annotations
@@ -218,42 +225,67 @@ def fused_acs_mixed(data, gain, rate_idx, nbits, radix: int = 2):
     (B, 48), host rate indices (B,) into RATE_MBPS_ORDER, bit counts
     (B,) -> (decisions (B, Tp, 8) uint8, final metrics (B, 64)), Tp =
     n_sym * 216, at radix 2 or 4. Launches ``fused_acs_mixed_kernel``
-    on CUDA tensors (one warp per frame), runs
-    :func:`fused_acs_mixed_plain` on CPU ones."""
+    on CUDA tensors (one block per frame; the sweep stops, exactly,
+    after the first renorm at or past the frame's bit count that leaves
+    every metric +0), runs :func:`fused_acs_mixed_plain` on CPU ones."""
+    return _fused_mixed(data, gain, rate_idx, nbits, radix, False)[:2]
+
+
+def fused_acs_mixed_with_stops(data, gain, rate_idx, nbits,
+                               radix: int = 2):
+    """:func:`fused_acs_mixed`, and (B,) int32 the step at which each
+    frame's sweep ended: a multiple of 72, Tp for a full sweep (always,
+    for the plain version)."""
+    return _fused_mixed(data, gain, rate_idx, nbits, radix, True)
+
+
+def _full_sweep(B: int, Tp: int) -> torch.Tensor:
+    """The plain versions' stop steps: every frame swept to Tp."""
+    return torch.full((B,), Tp, dtype=torch.int32)
+
+
+def _fused_mixed(data, gain, rate_idx, nbits, radix: int, want_stops: bool):
     key = _key("fused_mixed", radix)
     x = _symbols(data)
     B, n_sym = x.shape[0], x.shape[1]
+    Tp = n_sym * MAX_DBPS
     ridx = _rate_rows(rate_idx, B)
     if x.device.type == "cpu":
-        return fused_acs_mixed_plain(x, gain, ridx, nbits, radix)
+        return (*fused_acs_mixed_plain(x, gain, ridx, nbits, radix),
+                _full_sweep(B, Tp) if want_stops else None)
     viterbi_cuda._check_cuda("fused_acs_mixed", x)
     g, nb = _gain_and_bits(x, gain, nbits, B)
     if B == 0:
         raise ValueError("fused_acs_mixed: empty batch")
     dev = x.device
-    Tp = n_sym * MAX_DBPS
     bank, ndbps_t, norms_t = _device_tables(dev)
-    r = torch.from_numpy(ridx.astype(np.int32)).to(dev)
+    r = torch.from_numpy(ridx.astype(np.int32)).to(dev, non_blocking=True)
     dec = torch.empty((B, Tp, 8), dtype=torch.uint8, device=dev)
     metrics = torch.empty((B, 64), dtype=torch.float32, device=dev)
+    stops = (torch.empty((B,), dtype=torch.int32, device=dev)
+             if want_stops else None)
     err = viterbi_cuda._lib().ziria_fused_acs_mixed(
         x.data_ptr(), g.data_ptr(), nb.data_ptr(), r.data_ptr(),
         bank.data_ptr(), ndbps_t.data_ptr(), norms_t.data_ptr(),
-        dec.data_ptr(), metrics.data_ptr(), B, n_sym, Tp, radix, dev.index,
-        viterbi_cuda._stream(x))
+        dec.data_ptr(), metrics.data_ptr(),
+        None if stops is None else stops.data_ptr(), B, n_sym, Tp, radix,
+        dev.index, viterbi_cuda._stream(x))
     viterbi_cuda._raise_on(err, f"fused_acs_mixed_kernel ({key})")
     LAUNCHES[key] += 1
-    return dec, metrics
+    return dec, metrics, stops
 
 
 def _gain_and_bits(x, gain, nbits, B: int):
     """Contiguous float32 gains (B, 48) and int32 bit counts (B,) on
-    the symbols' device."""
+    the symbols' device. Host bit counts (and the wrappers' host rate
+    indices) go over without a stream sync: a copy from pageable memory
+    is staged before it returns, and a sync would leave the card idle
+    while the host prepares the next launch."""
     g = gain.to(device=x.device, dtype=torch.float32).contiguous()
     if g.shape != (B, 48):
         raise ValueError(f"fused: want ({B}, 48) gains, got "
                          f"{tuple(g.shape)}")
-    nb = torch.as_tensor(nbits, device=x.device).to(torch.int32)
+    nb = torch.as_tensor(nbits).to(x.device, torch.int32, non_blocking=True)
     return g, nb.reshape(-1).expand(B).contiguous()
 
 
@@ -297,8 +329,22 @@ def fused_acs_rate(data, gain, rate: RateParams, nbits, radix: int = 2):
     n_sym a multiple of :func:`symbols_per_block`, gains (B, 48), bit
     counts (B,) -> (decisions (B, Tp, 8) uint8, final metrics (B, 64)),
     Tp = n_sym * n_dbps, at radix 2 or 4. Launches
-    ``fused_acs_rate_kernel`` on CUDA tensors, runs
+    ``fused_acs_rate_kernel`` on CUDA tensors (stopping as
+    :func:`fused_acs_mixed` does, at its own cadence), runs
     :func:`fused_acs_rate_plain` on CPU ones."""
+    return _fused_rate(data, gain, rate, nbits, radix, False)[:2]
+
+
+def fused_acs_rate_with_stops(data, gain, rate: RateParams, nbits,
+                              radix: int = 2):
+    """:func:`fused_acs_rate`, and (B,) int32 the step at which each
+    frame's sweep ended: a multiple of spb * n_dbps, Tp for a full sweep
+    (always, for the plain version)."""
+    return _fused_rate(data, gain, rate, nbits, radix, True)
+
+
+def _fused_rate(data, gain, rate: RateParams, nbits, radix: int,
+                want_stops: bool):
     key = _key("fused_rate", radix)
     x = _symbols(data)
     B, n_sym = x.shape[0], x.shape[1]
@@ -306,25 +352,29 @@ def fused_acs_rate(data, gain, rate: RateParams, nbits, radix: int = 2):
     if n_sym % spb:
         raise ValueError(f"fused_acs_rate: n_sym={n_sym} is not a multiple "
                          f"of spb={spb} at {rate.mbps} Mbps")
+    Tp = n_sym * rate.n_dbps
     if x.device.type == "cpu":
-        return fused_acs_rate_plain(x, gain, rate, nbits, radix)
+        return (*fused_acs_rate_plain(x, gain, rate, nbits, radix),
+                _full_sweep(B, Tp) if want_stops else None)
     viterbi_cuda._check_cuda("fused_acs_rate", x)
     g, nb = _gain_and_bits(x, gain, nbits, B)
     if B == 0:
         raise ValueError("fused_acs_rate: empty batch")
     dev = x.device
-    Tp = n_sym * rate.n_dbps
     table = _rate_table(rate, dev)
     dec = torch.empty((B, Tp, 8), dtype=torch.uint8, device=dev)
     metrics = torch.empty((B, 64), dtype=torch.float32, device=dev)
+    stops = (torch.empty((B,), dtype=torch.int32, device=dev)
+             if want_stops else None)
     err = viterbi_cuda._lib().ziria_fused_acs_rate(
         x.data_ptr(), g.data_ptr(), nb.data_ptr(), table.data_ptr(),
-        dec.data_ptr(), metrics.data_ptr(), rate.n_dbps,
+        dec.data_ptr(), metrics.data_ptr(),
+        None if stops is None else stops.data_ptr(), rate.n_dbps,
         float(np.float32(_NORM[rate.n_bpsc])), B, n_sym, Tp,
         spb * rate.n_dbps, radix, dev.index, viterbi_cuda._stream(x))
     viterbi_cuda._raise_on(err, f"fused_acs_rate_kernel ({key})")
     LAUNCHES[key] += 1
-    return dec, metrics
+    return dec, metrics, stops
 
 
 def pad_symbols(data, rate: RateParams) -> torch.Tensor:
