@@ -60,7 +60,34 @@ Phases, each printing one JSON line:
       equal to (a)'s lanes.
    Every lane of every path must come back ok with its rate, length,
    payload bits and a good FCS;
-5. timing: ``receive_many`` in every decode mode, the modes in turns
+5. stream: the streaming receiver (``StreamReceiver``, pushed in
+   slabs of 50,000 samples, then flushed) on two streams of the port's
+   TX with random gaps, one CFO each and AWGN at 25 dB referenced to
+   frame power: ``stream_default``, 256 frames at ``Geometry()``'s
+   defaults (chunk 8192, frame_len 2048, K 8), the 8 rates in turn,
+   each PSDU the longest that fits 20 symbols; ``stream_wide``, 128
+   frames of 1000-byte PSDUs, one to a 32,768-sample window (chunk
+   131,072, K 8: the 110,592-step trellis of ``receive_many``), in the
+   default mode and with ``fused_demap=True``. Each run with every
+   launch count zeroed just before it and read just after: every true
+   frame emitted once, at its true start, right and with a good FCS;
+   no overflow chunk, nothing degraded, no containment counter moved;
+   ACS (fused: rate-switched fused) and traceback launches each equal
+   to the decode dispatches, and no other launch; then each of those
+   kernels, at the inputs of the run's first decode dispatch (8 lanes
+   of 6,912 steps default, 110,592 wide), bitwise equal to its plain
+   version, its stop steps checked as in phase 3, timed beside its
+   plain version and its bound (these launches count nowhere). Then
+   16 frames of
+   the fused wide run (2 a rate) equal ``rx.receive(fused_demap=True)``
+   over their windows; the wide stream checkpointed half way and
+   resumed in a new receiver equals the uninterrupted run; and
+   ``receive_many_device`` on the end-to-end batch, padded to its
+   bucket and uploaded once, equals ``receive_many``. Times: samples/s
+   and frames/s of each stream, mean CUDA-event ms of a chunk scan and
+   of a decode, chunks, decode dispatches, chunks in flight, peak
+   device memory;
+6. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -107,6 +134,19 @@ FUSED_ZERO, FUSED_FULL, FUSED_LONG, FUSED_INF, FUSED_NAN, FUSED_QUIET = \
     range(FUSED_EDGE, FUSED_EDGE + 6)
 FUSED_LANES = FUSED_EDGE + 6
 FUSED_EXACT = [i for i in range(FUSED_LANES) if i != FUSED_INF]
+# the stream phase: two streams of the port's TX, numpy gaps, one CFO
+# per stream and AWGN at STREAM_SNR_DB referenced to frame power,
+# pushed in slabs of STREAM_SLAB samples
+STREAM_SNR_DB = 25.0
+STREAM_SLAB = 50_000
+STREAM_DEFAULT_FRAMES = 256      # at Geometry() (chunk 8192, frame 2048)
+STREAM_DEFAULT_SYMBOLS = 20      # each PSDU the longest that fits them
+STREAM_WIDE_FRAMES = 128         # 1000-byte PSDUs, one to a frame_len
+STREAM_WIDE = {"chunk_len": 131072, "frame_len": 32768,
+               "max_frames_per_chunk": 8}
+STREAM_CFO = 0.004               # rad/sample
+STREAM_DELAY = 60
+STREAM_IDENTITY_PER_RATE = 2     # fused wide frames held to rx.receive
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -375,10 +415,385 @@ def symbol_bytes_to(stops, nbits, ndbps):
     return int((-(-used // np.asarray(ndbps, np.int64))).sum()) * SYMBOL_BYTES
 
 
+def held_to_plain(torch, what, fn, plain, compare, nbytes, nops, shape,
+                  reps=5) -> dict:
+    """A kernel wrapper `fn` against its plain version `plain` on the
+    same inputs (`compare` fails the run on a difference); the plain
+    version runs once under CUDA events, the kernel `reps` times.
+    Returns the error, both times and the bound of `nbytes` and
+    `nops`."""
+    got = fn()
+    want, plain_ms = cuda_timed(plain)
+    err = compare(torch, got, want, what)
+    del got, want
+    b_ms, b_by = bound(nbytes, nops)
+    return dict(max_abs_err=err, ms=cuda_ms(fn, reps=reps),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                shape=shape)
+
+
+def traceback_work(b, tp):
+    """Traceback (bytes, operations): decision words and metrics in,
+    bits out; 4 integer operations per step plus the 63-compare argmax,
+    counted at the float32 rate."""
+    return b * tp * 8 + b * 64 * 4 + b * tp, b * (tp * 4 + 63)
+
+
+def mixed_fused_work(b, n_sym, tp):
+    """The rate-switched fused kernel's (bytes, operations): symbols,
+    gains, bit counts and rate rows in (ridx and the 8-rate bank of
+    (2 * 216) 16-byte slot rows, n_dbps and norms), decisions and
+    metrics out; the ACS plus the front's per-slot work. Also returns
+    the bytes other than the symbols."""
+    from ziria_tpu_torch.ops import viterbi_fused as vf
+    from ziria_tpu_torch.phy.wifi.params import MAX_DBPS
+
+    rest = (b * 48 * 4 + b * 4 * 2 + 8 * 2 * MAX_DBPS * 16 + 8 * 4 * 2
+            + b * tp * 8 + b * 64 * 4)
+    ops = acs_ops(b, tp, vf.MIXED_UNROLL) + b * tp * 2 * FRONT_OPS_PER_SLOT
+    return b * n_sym * SYMBOL_BYTES + rest, ops, rest
+
+
 def acs_bytes(b, tp, in_bytes):
     """ACS bytes: soft pairs in (`in_bytes` per value), one 8-byte
     decision word per step and 64 4-byte metrics out."""
     return b * tp * 2 * in_bytes + b * tp * 8 + b * 64 * 4
+
+
+def longest_psdu(rate, n_sym: int) -> int:
+    """The longest PSDU (bytes, FCS included) that fits n_sym DATA
+    symbols at `rate`."""
+    from ziria_tpu_torch.phy.wifi.params import n_symbols
+
+    n = 1
+    while n_symbols(n + 1, rate) <= n_sym:
+        n += 1
+    return n
+
+
+def make_stream(rng, device, rates, lengths, gap_after, cfo, tail):
+    """One continuous stream: a frame of the port's TX per (rate,
+    length), each a random body + FCS, STREAM_DELAY idle samples first,
+    gap_after(i, frame samples) samples after frame i, `tail` idle
+    samples last, one CFO and complex AWGN at STREAM_SNR_DB
+    referenced to the frames' mean power. Returns ((n, 2) float32,
+    true starts, [(rate, length, psdu bits)])."""
+    import torch
+
+    from ziria_tpu_torch.ops.crc import append_crc32
+    from ziria_tpu_torch.phy.wifi import tx
+    from ziria_tpu_torch.utils.bits import bytes_to_bits
+
+    frames, truth, starts = [], [], []
+    pos = STREAM_DELAY
+    for i, (m, n) in enumerate(zip(rates, lengths)):
+        body = rng.integers(0, 256, n - 4).astype(np.uint8)
+        f = tx.encode_frame(body, m, add_fcs=True, device=device).cpu().numpy()
+        bits = append_crc32(bytes_to_bits(torch.from_numpy(body))).numpy()
+        frames.append(f)
+        truth.append((m, n, bits))
+        starts.append(pos)
+        pos += f.shape[0] + gap_after(i, f.shape[0])
+    z = np.zeros(pos + tail, np.complex128)
+    for st, f in zip(starts, frames):
+        z[st:st + f.shape[0]] = f[:, 0] + 1j * f[:, 1]
+    n_sig = sum(f.shape[0] for f in frames)
+    p_sig = float(np.sum(np.abs(z) ** 2)) / n_sig
+    z *= np.exp(1j * cfo * np.arange(z.size))
+    sigma = np.sqrt(p_sig * 10 ** (-STREAM_SNR_DB / 10) / 2)
+    z += sigma * (rng.normal(size=z.size) + 1j * rng.normal(size=z.size))
+    return (np.stack([z.real, z.imag], -1).astype(np.float32),
+            np.asarray(starts), truth)
+
+
+def push_slabs(sr, stream, lo: int, hi: int):
+    """Push stream[lo:hi] into a StreamReceiver in STREAM_SLAB slabs."""
+    out = []
+    for a in range(lo, hi, STREAM_SLAB):
+        out += sr.push(stream[a:min(a + STREAM_SLAB, hi)])
+    return out
+
+
+class StepTimer:
+    """CUDA events around every call of the module functions named:
+    their mean milliseconds a call."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.events = module, names, {}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            calls = self.events.setdefault(n, [])
+
+            def timed(*a, fn=fn, calls=calls, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                calls.append((e0, e1))
+                return out
+            setattr(self.module, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+    def mean_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return {n: (float(np.mean([a.elapsed_time(b) for a, b in c]))
+                    if c else None) for n, c in self.events.items()}
+
+
+class KernelTap:
+    """While active, records the arguments of the first call of each
+    kernel wrapper named (module, function name); the wrapper runs as
+    before and counts its own launch. The tensors are kept, not copied:
+    the decode makes each wrapper's inputs afresh and never writes them
+    after the call."""
+
+    def __init__(self, wrappers):
+        self.wrappers, self.args = wrappers, {}
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.wrappers]
+        for m, n, fn in self.saved:
+            def tapped(*a, fn=fn, n=n, **k):
+                self.args.setdefault(n, ([list(v) if isinstance(v, list)
+                                          else v for v in a], dict(k)))
+                return fn(*a, **k)
+            setattr(m, n, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def stream_kernel_checks(torch, name, tap, fused):
+    """Each kernel of a stream run at the inputs of its first decode
+    dispatch, against its plain version, bitwise, with its stop steps
+    checked as in the kernel_parity phase: the ACS (fused: rate-switched
+    fused) kernel and the traceback. Returns {launch key: the kernel's
+    error, times, bound, shape and stop steps}."""
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.phy.wifi.params import RATE_MBPS_ORDER
+
+    out = {}
+    (dec, met), _k = tap.args["traceback"]
+    if fused:
+        (data, gain, ridx, nbits, radix), _k = tap.args["fused_acs_mixed"]
+        check(radix == 2, f"{name}: fused radix {radix}")
+        b, n_sym, tp = int(data.shape[0]), int(data.shape[1]), int(dec.shape[1])
+        nbytes, nops, _rest = mixed_fused_work(b, n_sym, tp)
+        what = f"fused_mixed at {name}'s inputs"
+        out["fused_mixed"] = held_to_plain(
+            torch, what, lambda: vf.fused_acs_mixed(data, gain, ridx, nbits),
+            lambda: vf.fused_acs_mixed_plain(data, gain, ridx, nbits),
+            same_acs, nbytes, nops, [b, n_sym, tp])
+        *_got, stops = vf.fused_acs_mixed_with_stops(data, gain, ridx, nbits)
+        out["fused_mixed"]["stop_step"] = check_fused_stops(
+            stops, nbits, vf.MIXED_UNROLL, tp, what, list(range(b)))
+        out["fused_mixed"]["nbits"] = [int(v) for v in nbits]
+        out["fused_mixed"]["rates_mbps"] = [RATE_MBPS_ORDER[int(r)]
+                                            for r in ridx]
+    else:
+        (x, md, radix), _k = tap.args["acs"]
+        check((md, radix) == ("float32", 2),
+              f"{name}: ACS mode {md}, radix {radix}")
+        b, tp = int(x.shape[0]), int(x.shape[1])
+        what = f"acs at {name}'s inputs"
+        out["acs"] = held_to_plain(
+            torch, what, lambda: vc.acs(x, md, radix),
+            lambda: vc.acs_plain(x, metric_dtype=md, radix=radix),
+            same_acs, acs_bytes(b, tp, 4), acs_ops(b, tp, vc.RENORM),
+            [b, tp])
+        _dec, _met, stops = vc.acs_with_stops(x, md, radix)
+        out["acs"]["stop_step"] = check_stops(torch, stops, x, what)
+    b, tp = int(dec.shape[0]), int(dec.shape[1])
+    out["traceback"] = held_to_plain(
+        torch, f"traceback at {name}'s inputs",
+        lambda: vc.traceback(dec, met), lambda: vc.traceback_plain(dec, met),
+        same_bits, *traceback_work(b, tp), [b, tp])
+    return out
+
+
+def stream_phase(rng, dev, caps, sent, rates, card):
+    """The streaming receiver on the card (the docstring's phase 5):
+    stream_default, stream_wide in the default and fused modes, the
+    checkpoint resume, the per-capture identity, receive_many_device.
+    Returns (the phase's JSON object, each stream's launches)."""
+    import torch
+
+    from ziria_tpu_torch.backend import framebatch
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.phy.wifi import rx
+    from ziria_tpu_torch.phy.wifi.params import RATE_MBPS_ORDER, RATES
+    from ziria_tpu_torch.utils import dispatch, telemetry
+
+    order = [RATE_MBPS_ORDER[i % 8] for i in range(STREAM_DEFAULT_FRAMES)]
+    default_bytes = {m: longest_psdu(RATES[m], STREAM_DEFAULT_SYMBOLS)
+                     for m in RATE_MBPS_ORDER}
+    wide_rates = [RATE_MBPS_ORDER[i % 8] for i in range(STREAM_WIDE_FRAMES)]
+    wl = STREAM_WIDE["frame_len"]
+    streams = {
+        "stream_default": (make_stream(
+            rng, dev, order, [default_bytes[m] for m in order],
+            lambda i, n: int(rng.integers(300, 600)), STREAM_CFO,
+            2048), {}),
+        "stream_wide": (make_stream(
+            rng, dev, wide_rates, [PSDU_BYTES] * STREAM_WIDE_FRAMES,
+            lambda i, n: wl - n + int(rng.integers(300, 600)),
+            -STREAM_CFO, wl), STREAM_WIDE)}
+    runs = {"stream_default": ("stream_default", {}),
+            "stream_wide": ("stream_wide", {}),
+            "stream_wide_fused": ("stream_wide", {"fused_demap": True})}
+    out, launches_of, frames_of, checks_of = {}, {}, {}, {}
+    for name, (src, knobs) in runs.items():
+        (stream, starts, truth), geo = streams[src]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vc.reset_launches()
+        vf.reset_launches()
+        fused = bool(knobs.get("fused_demap"))
+        tap = KernelTap([(vc, "traceback"),
+                         (vf, "fused_acs_mixed") if fused else (vc, "acs")])
+        with dispatch.count_dispatches() as d, telemetry.collect() as reg, \
+                StepTimer(rx, ("stream_chunk_graph",
+                               "stream_decode_graph")) as steps, tap:
+            t0 = time.perf_counter()
+            sr = framebatch.StreamReceiver(check_fcs=True, device=dev,
+                                           **geo, **knobs)
+            frames = push_slabs(sr, stream, 0, stream.shape[0]) + sr.flush()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+        st = sr.stats
+        decodes = d.counts.get("rx.stream_decode", 0)
+        wrong = [i for i, (f, (m, n, bits)) in enumerate(zip(frames, truth))
+                 if not (f.result.ok and f.result.rate_mbps == m
+                         and f.result.length_bytes == n
+                         and f.result.crc_ok is True
+                         and np.array_equal(f.result.psdu_bits, bits))]
+        contained = {k: v for k, v in reg.counters().items()
+                     if k.startswith("resilience.")}
+        step_ms = steps.mean_ms()
+        out[name] = {
+            "geometry": {"chunk_len": sr.chunk_len, "frame_len": sr.frame_len,
+                         "k": sr.k, "n_sym_bucket": sr.n_sym_bucket},
+            "knobs": knobs, "samples": int(stream.shape[0]),
+            "frames_sent": len(truth), "frames_emitted": len(frames),
+            "wrong": wrong, "ms": ms,
+            "samples_per_s": stream.shape[0] / ms * 1e3,
+            "frames_per_s": len(frames) / ms * 1e3,
+            "chunks": st.chunks, "decode_dispatches": decodes,
+            "scan_ms_per_chunk": step_ms["stream_chunk_graph"],
+            "decode_ms_per_dispatch": step_ms["stream_decode_graph"],
+            "max_in_flight": st.max_in_flight,
+            "overflow_chunks": st.overflow_chunks,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": launches, "stats": st._asdict(),
+            "containment_counters": contained, "card": card}
+        check([f.start for f in frames] == [int(s) for s in starts],
+              f"{name}: emitted starts differ from the true starts")
+        check(not wrong, f"{name}: frames decoded wrongly: {wrong}")
+        check(st.overflow_chunks == 0, f"{name}: overflow chunks")
+        check(not st.degraded and st.lane_blowups == 0
+              and st.quarantines == 0 and st.sanitized == 0,
+              f"{name}: containment ran: {st}")
+        check(not any(contained.values()),
+              f"{name}: containment counters moved: {contained}")
+        acs_key = "fused_mixed" if fused else "acs"
+        want = {k: 0 for k in launches}
+        want.update({acs_key: decodes, "traceback": decodes})
+        check(decodes > 0 and launches == want,
+              f"{name}: launches {launches}, want {want}")
+        launches_of[name] = launches
+        frames_of[name] = frames
+        # after the counts are read: these launches compare, and count
+        # nowhere
+        checks_of[name] = out[name]["kernels"] = stream_kernel_checks(
+            torch, name, tap, fused)
+        del tap
+
+    # each rate's first frames of the fused wide run, held field for
+    # field to per-capture rx.receive over the same window
+    (stream, _starts, _truth), _geo = streams["stream_wide"]
+    picked = {}
+    for f in frames_of["stream_wide_fused"]:
+        sel = picked.setdefault(f.result.rate_mbps, [])
+        if len(sel) < STREAM_IDENTITY_PER_RATE:
+            sel.append(f)
+    ident = [f for sel in picked.values() for f in sel]
+    check(len(ident) == 8 * STREAM_IDENTITY_PER_RATE,
+          "identity: too few frames per rate")
+    for f in ident:
+        ref = rx.receive(stream[f.start:f.start + wl], check_fcs=True,
+                         fused_demap=True, device=dev)
+        check(same_result(f.result, ref),
+              f"identity: the frame at {f.start} differs from rx.receive")
+
+    # the default wide stream again, checkpointed half way through its
+    # slabs and resumed in a new receiver
+    half = stream.shape[0] // STREAM_SLAB // 2 * STREAM_SLAB
+    sr = framebatch.StreamReceiver(check_fcs=True, device=dev, **STREAM_WIDE)
+    resumed = push_slabs(sr, stream, 0, half)
+    blob, drained = sr.checkpoint()
+    sr = framebatch.StreamReceiver(check_fcs=True, device=dev,
+                                   checkpoint=blob, **STREAM_WIDE)
+    resumed += drained + push_slabs(sr, stream, half, stream.shape[0]) \
+        + sr.flush()
+    want = frames_of["stream_wide"]
+    check([f.start for f in resumed] == [f.start for f in want]
+          and all(same_result(a.result, b.result)
+                  for a, b in zip(resumed, want)),
+          "checkpoint: the resumed stream differs from the uninterrupted one")
+
+    # receive_many_device on the end-to-end batch, padded to its bucket
+    # and uploaded once, against receive_many on the same captures
+    bucket = 1 << (max(c.shape[0] for c in caps) - 1).bit_length()
+    x = np.zeros((len(caps), bucket, 2), np.float32)
+    for i, c in enumerate(caps):
+        x[i, :c.shape[0]] = c
+    x_dev = torch.from_numpy(x).to(dev)
+    vc.reset_launches()
+    vf.reset_launches()
+    got = framebatch.receive_many_device(x_dev, len(caps), check_fcs=True,
+                                         device=dev)
+    dev_launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+    want = framebatch.receive_many(list(x), check_fcs=True, device=dev)
+    check(all(same_result(a, b) for a, b in zip(got, want))
+          and len(got) == len(want) == len(caps),
+          "receive_many_device differs from receive_many")
+    check(all(r.ok and r.rate_mbps == m and r.crc_ok is True
+              and np.array_equal(r.psdu_bits, b)
+              for r, m, b in zip(got, rates, sent)),
+          "receive_many_device: lanes decoded wrongly")
+    check(dev_launches == {k: int(k in ("acs", "traceback"))
+                           for k in dev_launches},
+          f"receive_many_device: launches {dev_launches}")
+    return ({"phase": "stream", "card": card, "streams": out,
+             "identity_frames": len(ident), "identity": "equal",
+             "checkpoint_resume": {"split_at_sample": half,
+                                   "frames": len(resumed),
+                                   "equal": True},
+             "receive_many_device": {"lanes": len(caps), "bucket": bucket,
+                                     "equal_to_receive_many": True,
+                                     "launches": dev_launches}},
+            launches_of, checks_of)
+
+
+def same_result(a, b) -> bool:
+    """Two RxResults equal field for field."""
+    return ((a.ok, a.rate_mbps, a.length_bytes, a.crc_ok)
+            == (b.ok, b.rate_mbps, b.length_bytes, b.crc_ok)
+            and np.array_equal(a.psdu_bits, b.psdu_bits))
 
 
 def main(argv=None) -> int:
@@ -617,7 +1032,12 @@ def main(argv=None) -> int:
         check(not v["failed"], f"{p}: lanes decoded wrongly: {v['failed']}")
     del results
 
-    # ---- 5. timing
+    # ---- 5. the streaming receiver
+    stream_line, stream_launches, stream_checks = stream_phase(
+        rng, dev, caps, sent, rates, card)
+    emit(stream_line)
+
+    # ---- 6. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -745,14 +1165,9 @@ def main(argv=None) -> int:
     stats = {}
 
     def measure(key, fn, plain, compare, nbytes, nops, shape, reps=5):
-        got = fn()
-        want, plain_ms = cuda_timed(plain)
-        err = compare(torch, got, want, f"{key} at the main path's inputs")
-        del got, want
-        b_ms, b_by = bound(nbytes, nops)
-        stats[key] = dict(max_abs_err=err, ms=cuda_ms(fn, reps=reps),
-                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          shape=shape)
+        stats[key] = held_to_plain(torch, f"{key} at the main path's inputs",
+                                   fn, plain, compare, nbytes, nops, shape,
+                                   reps)
 
     def stopped(key, st, nbytes, nops, chain_steps):
         """Record a kernel's stop steps `st` (max, mean), ns per step of
@@ -778,14 +1193,12 @@ def main(argv=None) -> int:
                     x, metric_dtype=md, radix=radix),
                 same_acs, nbytes, acs_ops(Bk, Tp, vc.RENORM), [Bk, Tp])
         acs_stopped(key, x, nbytes, metric_dtype=md, radix=radix)
-    # traceback: 4 integer operations per step, plus the 63-compare
-    # argmax, counted at the float32 rate; float32 metrics (the default
-    # path) and int32 metrics (the int16 path's), timed
+    # traceback (traceback_work): float32 metrics (the default path) and
+    # int32 metrics (the int16 path's), timed
     dec, met = out["acs"]
     measure("traceback", lambda: vc.traceback(dec, met),
             lambda: vc.traceback_plain(dec, met), same_bits,
-            Bk * Tp * 8 + Bk * 64 * 4 + Bk * Tp, Bk * (Tp * 4 + 63),
-            [Bk, Tp])
+            *traceback_work(Bk, Tp), [Bk, Tp])
     dec_i, met_i = vc.acs(q["int16"], "int16", 2)
     stats["traceback"]["int32_metrics_ms"] = cuda_ms(
         lambda: vc.traceback(dec_i, met_i), reps=5)
@@ -797,8 +1210,7 @@ def main(argv=None) -> int:
     dec_f, met_f = out["fused"]
     measure("traceback_fused", lambda: vc.traceback(dec_f, met_f),
             lambda: vc.traceback_plain(dec_f, met_f), same_bits,
-            Bk * Tp * 8 + Bk * 64 * 4 + Bk * Tp, Bk * (Tp * 4 + 63),
-            [Bk, Tp])
+            *traceback_work(Bk, Tp), [Bk, Tp])
     stats["traceback"]["fused_dec_zero_tail"] = stats.pop("traceback_fused")
     del dec_f, met_f
     del out["llr"], out["acs"], llr, dec, met, dec_i, met_i, q
@@ -814,19 +1226,12 @@ def main(argv=None) -> int:
     del wllr, wres
 
     # the rate-switched fused kernel at receive_many(fused_demap=True)'s
-    # inputs: symbols, gains, bit counts and rate rows in (ridx and the
-    # 8-rate bank of (2 * 216) 16-byte slot rows, n_dbps and norms);
-    # decisions and metrics out; the ACS plus the front's per-slot work.
-    # The work it needed: operations up to each frame's stop, symbols up
-    # to its bits, every other input and every word. Every frame must
-    # stop at the first boundary it can
+    # inputs (mixed_fused_work). The work it needed: operations up to
+    # each frame's stop, symbols up to its bits, every other input and
+    # every word. Every frame must stop at the first boundary it can
     n_sym = int(sym.shape[1])
-    mixed_rest = (Bk * 48 * 4 + Bk * 4 * 2 + 8 * 2 * MAX_DBPS * 16
-                  + 8 * 4 * 2 + Bk * Tp * 8 + Bk * 64 * 4)
-    mixed_bytes = Bk * n_sym * SYMBOL_BYTES + mixed_rest
+    mixed_bytes, mixed_ops, mixed_rest = mixed_fused_work(Bk, n_sym, Tp)
     mixed_ndbps = [RATES[RATE_MBPS_ORDER[r]].n_dbps for r in ridx]
-    mixed_ops = acs_ops(Bk, Tp, vf.MIXED_UNROLL) + \
-        Bk * Tp * 2 * FRONT_OPS_PER_SLOT
     for radix, key in ((2, "fused_mixed"), (4, "fused_mixed_r4")):
         measure(key,
                 lambda r=radix: vf.fused_acs_mixed(sym, gain, ridx, nbits, r),
@@ -910,6 +1315,10 @@ def main(argv=None) -> int:
             "source": "ziria_tpu_torch/csrc/viterbi.cu",
             "replaces": replaces, "path": p,
             "launches": paths[p]["launches"][name],
+            "stream_launches": {sn: sl[name]
+                                for sn, sl in stream_launches.items()},
+            "stream_shapes": {sn: sc[name] for sn, sc in stream_checks.items()
+                              if name in sc},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

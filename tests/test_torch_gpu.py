@@ -11,11 +11,13 @@ import pytest
 import torch
 
 from chip_smoke import FUSED_EXACT, FUSED_INF, FUSED_LANES, FUSED_QUIET, \
-    need_stop
+    longest_psdu, make_stream, need_stop
+from test_torch_crc import FULL_BITS, edge_lanes, masked_loop
 from test_torch_fused_stop import _inputs
 from ziria_tpu_torch.backend import framebatch
-from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+from ziria_tpu_torch.ops import crc, viterbi_cuda as vc, viterbi_fused as vf
 from ziria_tpu_torch.phy.wifi import params, rx, tx
+from ziria_tpu_torch.utils import dispatch
 
 pytestmark = pytest.mark.gpu
 
@@ -366,3 +368,43 @@ def test_fused_stop_edge_lanes_equal_plain(cuda, radix):
         _check_fused_stops(stops, nbits,
                            vf.symbols_per_block(rate) * rate.n_dbps,
                            n_sym * rate.n_dbps)
+
+
+@pytest.mark.parametrize("width,lanes", [(8 * 70, None), (FULL_BITS, 128)])
+def test_masked_crc_on_card_equals_plain_loop(cuda, width, lanes):
+    # the edge lanes (0 ... 40 bits, the full width, a clamped FCS
+    # start, all ones) and random ones; at full width 128 lanes
+    bits, nb = edge_lanes(width, width)
+    if lanes is not None:
+        rng = np.random.default_rng(3)
+        extra = torch.from_numpy(rng.integers(0, 2, (lanes - bits.shape[0],
+                                                     width)).astype(np.uint8))
+        bits = torch.cat([bits, extra])
+        nb = torch.cat([nb, torch.full((extra.shape[0],), width)])
+    got = crc.check_crc32_masked(bits.to(cuda), nb.to(cuda))
+    assert torch.equal(got, masked_loop(bits.to(cuda), nb.to(cuda)))
+    assert torch.equal(got.cpu(), crc.check_crc32_masked(bits, nb))
+
+
+def test_stream_default_on_card_equals_cpu(cuda):
+    # Geometry() defaults, 16 frames of the 8 rates at 20 symbols
+    rng = np.random.default_rng(4)
+    order = [params.RATE_MBPS_ORDER[i % 8] for i in range(16)]
+    stream, starts, truth = make_stream(
+        rng, "cpu", order, [longest_psdu(params.RATES[m], 20) for m in order],
+        lambda i, n: int(rng.integers(300, 600)), 0.004, 2048)
+    vc.reset_launches()
+    with dispatch.count_dispatches() as d:
+        got, st = framebatch.receive_stream(stream, check_fcs=True,
+                                            device=cuda)
+    decodes = d.counts["rx.stream_decode"]
+    assert vc.LAUNCHES == _only(vc, acs=decodes, traceback=decodes)
+    want, wst = framebatch.receive_stream(stream, check_fcs=True,
+                                          device="cpu")
+    assert st == wst and [f.start for f in got] == list(starts)
+    for g, w, (m, n, bits) in zip(got, want, truth):
+        g, w = g.result, w.result
+        assert (g.ok, g.rate_mbps, g.length_bytes, g.crc_ok) == \
+            (w.ok, w.rate_mbps, w.length_bytes, w.crc_ok) == (True, m, n, True)
+        np.testing.assert_array_equal(g.psdu_bits, w.psdu_bits)
+        np.testing.assert_array_equal(g.psdu_bits, bits)

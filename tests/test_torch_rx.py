@@ -254,15 +254,17 @@ def test_crc_many_matches_reference(corpus):
                  id="receive-viterbi_window-1024"),
     pytest.param("receive", {"fused_demap": True, "viterbi_radix": 4},
                  id="receive-fused_demap-radix4"),
-    pytest.param("receive", {"geometry": object()}, id="receive-geometry")])
+    pytest.param("receive", {"geometry": geometry.Geometry(
+        viterbi_metric="int16")}, id="receive-geometry")])
 def test_unported_knobs_raise(corpus, entry, kwargs):
-    """``fxp`` and a ``geometry`` object still raise, naming the ROADMAP
-    item that ports them. The decode modes of the other cases run now:
-    each is held against the port itself on the corpus, with no JAX
-    call (test_torch_modes*.py hold them against the reference). Radix
-    4 equals radix 2 field for field; a window and an int16 metric
-    decode every lane to the default's payload."""
-    if {"fxp", "geometry"} & set(kwargs):
+    """``fxp`` still raises, naming the ROADMAP item that ports it. The
+    decode modes of the other cases run now, a ``geometry`` object's
+    knobs too: each is held against the port itself on the corpus,
+    with no JAX call (test_torch_modes*.py hold them against the
+    reference, test_torch_stream_state.py the geometry). Radix 4 equals
+    radix 2 field for field; a window and an int16 metric decode every
+    lane to the default's payload."""
+    if "fxp" in kwargs:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rx.receive(np.zeros((600, 2), np.float32), device="cpu",
                        **kwargs)

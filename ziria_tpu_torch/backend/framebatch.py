@@ -1,19 +1,24 @@
-"""Frame-batched library receiver (counterpart of
-ziria_tpu/backend/framebatch.py ``receive_many`` :210 and
-``_mixed_decode_tail`` :287)."""
+"""Frame-batched and streaming library receivers (counterpart of
+ziria_tpu/backend/framebatch.py: ``receive_many`` :210,
+``_mixed_decode_tail`` :287, ``receive_many_device`` :344, and the
+single-stream receiver :405-1220: ``StreamReceiver`` and
+``receive_stream``)."""
 
 from __future__ import annotations
 
 import os
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ziria_tpu_torch.ops import cplx, viterbi
 from ziria_tpu_torch.phy.wifi import rx as _rx
 from ziria_tpu_torch.phy.wifi.params import N_SERVICE_BITS, RATE_INDEX, \
     RATES
-from ziria_tpu_torch.utils import geometry
+from ziria_tpu_torch.runtime import resilience
+from ziria_tpu_torch.utils import dispatch, faults, telemetry
+from ziria_tpu_torch.utils import geometry as _geometry
 from ziria_tpu_torch.utils.dispatch import pad_lanes
 
 
@@ -80,7 +85,7 @@ def receive_many(captures: Sequence[Any], check_fcs: bool = False,
             return results
         # one common symbol bucket for the whole batch: shorter frames
         # carry zero-LLR erasures up to it
-        n_sym_b = max(geometry.sym_bucket(a.n_sym) for _i, a in acqs)
+        n_sym_b = max(_geometry.sym_bucket(a.n_sym) for _i, a in acqs)
         padded = pad_lanes(acqs)
         if batched_acquire:
             segs = _rx.gather_segments_many(x_dev, [a for _i, a in padded],
@@ -104,15 +109,18 @@ def _mixed_decode_tail(acqs, padded, segs, n_sym_b: int,
     list `segs` was built from."""
     ridx = [RATE_INDEX[a.rate_mbps] for _i, a in padded]
     nbits = [a.n_sym * RATES[a.rate_mbps].n_dbps for _i, a in padded]
-    clear_dev = _rx.decode_data_mixed(
-        segs, ridx, nbits, n_sym_b, viterbi_window, viterbi_metric,
-        viterbi._check_radix(viterbi_radix), sco_track=sco_track,
-        fused_demap=fused_demap)
+    with dispatch.timed("rx.decode_mixed"):
+        clear_dev = _rx.decode_data_mixed(
+            segs, ridx, nbits, n_sym_b, viterbi_window, viterbi_metric,
+            viterbi._check_radix(viterbi_radix), sco_track=sco_track,
+            fused_demap=fused_demap)
     crc_b = None
     if check_fcs:
         npsdu = torch.tensor([8 * a.length_bytes for _i, a in padded],
                              device=segs.device)
-        crc_b = _rx.crc_psdu_many_graph(clear_dev, npsdu).cpu().numpy()
+        with dispatch.timed("rx.crc_many"):
+            crc_dev = _rx.crc_psdu_many_graph(clear_dev, npsdu)
+        crc_b = crc_dev.cpu().numpy()
     clear = clear_dev.cpu().numpy()
     for k, (i, a) in enumerate(acqs):
         psdu = clear[k][N_SERVICE_BITS: N_SERVICE_BITS
@@ -121,3 +129,773 @@ def _mixed_decode_tail(acqs, padded, segs, n_sym_b: int,
         results[i] = _rx.RxResult(True, a.rate_mbps, a.length_bytes,
                                   psdu, crc)
     return results
+
+
+def receive_many_device(x_dev, n_lanes: int, check_fcs: bool = False,
+                        viterbi_window: Optional[int] = None,
+                        viterbi_metric: Optional[str] = None,
+                        viterbi_radix: Optional[int] = None,
+                        sco_track: Optional[bool] = None,
+                        fused_demap: Optional[bool] = None,
+                        device="cuda") -> List[Any]:
+    """Batched receive over a capture batch already on the device:
+    x_dev (R, L, 2), R a power-of-two lane count (rows past `n_lanes`
+    repeating row 0) and L a power-of-two capture bucket of at least
+    512, every row's whole length its capture. Acquire, gather and the
+    mixed decode as in :func:`receive_many`, field for field equal to
+    it on the same padded captures. `x_dev` moves to `device` ("cuda"
+    by default) if it is elsewhere."""
+    device = _rx.check_device(device, "receive_many_device")
+    x_dev = torch.as_tensor(x_dev, dtype=torch.float32, device=device)
+    l_cap = int(x_dev.shape[1])
+    if l_cap != _geometry.capture_bucket(l_cap):
+        raise ValueError(
+            f"capture length {l_cap} is not a power-of-two >= 512 "
+            f"bucket; per-capture receive would pad to "
+            f"{_geometry.capture_bucket(l_cap)} and the identity contract "
+            f"needs identical geometry")
+    nv = np.full((int(x_dev.shape[0]),), l_cap, np.int64)
+    with cplx.exact_fp32():
+        results, lanes = _rx.acquire_batch(x_dev, nv, nv, n_lanes)
+        if not lanes:
+            return results
+        n_sym_b = max(_geometry.sym_bucket(a.n_sym) for _i, a in lanes)
+        padded = pad_lanes(lanes)
+        segs = _rx.gather_segments_many(x_dev, [a for _i, a in padded],
+                                        n_sym_b)
+        return _mixed_decode_tail(lanes, padded, segs, n_sym_b, results,
+                                  check_fcs, viterbi_window, viterbi_metric,
+                                  viterbi_radix,
+                                  _rx.sco_track_enabled(sco_track),
+                                  _rx.fused_demap_enabled(fused_demap))
+
+
+# ------------------------------------------------------ streaming receiver
+#
+# An unbounded I/Q stream is cut into overlapping chunks of chunk_len
+# samples, stride chunk_len - frame_len. Each chunk costs at most two
+# steps: the scan (rx.stream_chunk_graph) and, when a lane is
+# decodable, the fixed-geometry decode (rx.stream_decode_graph). Host
+# state (tail samples, offset, frames emitted, dedupe set) carries
+# across chunks, so every frame is owned by exactly one chunk and
+# equals per-capture rx.receive of stream[start : start + frame_len].
+# Chunk i is launched before chunk i-1 is drained; its small outputs
+# go to the host in one copy started at launch.
+
+
+def streaming_rx_enabled(streaming: Optional[bool] = None) -> bool:
+    """The ``streaming`` knob: the explicit value, else the
+    ZIRIA_STREAMING_RX environment variable (default on). Off runs the
+    per-capture oracle over the same detected windows."""
+    if streaming is not None:
+        return streaming
+    return os.environ.get("ZIRIA_STREAMING_RX", "1") != "0"
+
+
+class StreamFrame(NamedTuple):
+    """One emitted frame: `start` in stream coordinates and the
+    `rx.RxResult` of per-capture ``rx.receive(stream[start : start +
+    frame_len])``."""
+    start: int
+    result: Any
+
+
+class StreamCarry(NamedTuple):
+    """The cross-chunk carry: the not-yet-owned tail samples, the
+    stream coordinate of their first sample, the frames emitted so far
+    and the dedupe watermark."""
+    tail: np.ndarray
+    offset: int
+    emitted: int
+    watermark: int = 0
+
+
+class StreamStats(NamedTuple):
+    chunks: int                # chunk scans issued
+    frames: int                # StreamFrames emitted
+    overflow_chunks: int       # chunks reporting > K eligible plateaus
+    max_in_flight: int         # high-water chunks in flight
+    sanitized: int = 0         # non-finite samples zeroed (sanitize=True)
+    quarantines: int = 0       # times the stream entered quarantine
+    lane_blowups: int = 0      # per-window oracle decode blowups caught
+    degraded: bool = False     # a step degraded to its twin
+
+
+def _chunk_candidates(seen, off, own, starts, k: int):
+    """Prune `seen` to the watermark `off`, then collect the chunk's
+    owned, unseen (abs_start, lane row) candidates in stream order.
+    Returns (pruned seen, candidates)."""
+    seen = {s for s in seen if s >= off}
+    cands = []
+    for j in range(k):
+        if not own[j]:
+            continue
+        abs_start = off + int(starts[j])
+        if abs_start in seen:
+            continue
+        seen.add(abs_start)
+        cands.append((abs_start, j))
+    cands.sort()
+    return seen, cands
+
+
+def _slab_array(samples, name: str) -> np.ndarray:
+    """A pushed slab as (n, 2) float32 I/Q pairs, or a ValueError
+    naming the stream."""
+    try:
+        arr = np.asarray(samples, np.float32)
+    except (TypeError, ValueError) as e:
+        raise ValueError(
+            f"{name}: pushed slab is not float-convertible "
+            f"((n, 2) I/Q sample pairs expected): {e}") from None
+    if arr.size == 0:
+        return arr.reshape(0, 2)
+    if arr.ndim != 2 or arr.shape[1] != 2:
+        raise ValueError(
+            f"{name}: pushed slab has shape {arr.shape}, want (n, 2) "
+            f"I/Q sample pairs")
+    return arr
+
+
+#: per-window decode blowups that quarantine a stream
+BLOWUP_LIMIT = 2
+#: consecutive clean chunks after which a quarantined stream rejoins
+REJOIN_AFTER = 3
+
+
+class _LaneHealth:
+    """Per-stream quarantine state: non-finite input poisons the lane
+    at once, BLOWUP_LIMIT per-window decode blowups poison it too; a
+    poisoned lane scans with valid 0 (nothing found) and rejoins after
+    REJOIN_AFTER consecutive clean chunks."""
+
+    __slots__ = ("quarantined", "clean", "blowups", "quarantines")
+
+    def __init__(self):
+        self.quarantined = False
+        self.clean = 0          # consecutive clean chunks in quarantine
+        self.blowups = 0        # per-lane decode blowups
+        self.quarantines = 0    # times this lane entered quarantine
+
+    def poison(self) -> None:
+        if not self.quarantined:
+            self.quarantines += 1
+            telemetry.count("resilience.quarantines")
+        self.quarantined = True
+        self.clean = 0
+
+    def blowup(self) -> None:
+        self.blowups += 1
+        if self.blowups >= BLOWUP_LIMIT:
+            self.poison()
+            self.blowups = 0
+
+    def step(self, dirty: bool) -> bool:
+        """Advance one consumed chunk; True: it rides quarantined. A
+        chunk's blowups arrive one drain after its step, so they are
+        not reset here."""
+        if dirty:
+            self.clean = 0
+            return self.quarantined
+        if self.quarantined:
+            self.clean += 1
+            if self.clean >= REJOIN_AFTER:
+                self.quarantined = False
+                self.clean = 0
+                self.blowups = 0
+            return True
+        return False
+
+
+#: geometry keys that postdate shipped checkpoint blobs, with the
+#: behavior a blob without them had
+_LEGACY_GEOMETRY_DEFAULTS = {"sco_track": False, "fused_demap": False}
+
+
+def _validate_checkpoint(st, mine: dict) -> None:
+    """Refuse a checkpoint whose geometry fingerprint is absent,
+    partial or different from the restoring receiver's."""
+    geo = dict(st.geometry)
+    for k_, v_ in _LEGACY_GEOMETRY_DEFAULTS.items():
+        geo.setdefault(k_, v_)
+    missing = [k_ for k_ in mine if k_ not in geo]
+    if missing:
+        raise resilience.CarryCheckpointError(
+            f"checkpoint lacks geometry fields {missing}; "
+            f"use StreamReceiver.checkpoint() (or pass the "
+            f"receiver geometry to checkpoint_carry) so the "
+            f"restore can be validated")
+    bad = {k_: (geo[k_], mine[k_]) for k_ in mine if geo[k_] != mine[k_]}
+    if bad:
+        raise resilience.CarryCheckpointError(
+            f"checkpoint geometry mismatch (checkpoint, "
+            f"receiver): {bad}")
+
+
+def _stream_geometry(r) -> dict:
+    """The checkpoint's geometry fingerprint: everything a restoring
+    receiver must match. The decode knobs are stored as the receiver
+    holds them: viterbi_window and viterbi_metric as the caller left
+    them (None when defaulted), the radix, sco_track and fused_demap
+    resolved."""
+    return {"chunk_len": r.chunk_len, "frame_len": r.frame_len,
+            "k": r.k, "n_sym_bucket": r.n_sym_bucket,
+            "check_fcs": bool(r.check_fcs),
+            "threshold": r._threshold, "min_run": r._min_run,
+            "dead_zone": r._dead_zone,
+            "viterbi_window": r.viterbi_window,
+            "viterbi_metric": r.viterbi_metric,
+            "viterbi_radix": r.viterbi_radix,
+            "sco_track": bool(r.sco_track),
+            "fused_demap": bool(r.fused_demap)}
+
+
+#: the chunk scan's per-lane outputs, in the order they travel to the
+#: host (overflow rides as a k-wide row)
+_CHUNK_FIELDS = ("own", "starts", "overflow", "found", "fstart", "eps",
+                 "rb", "ln", "pk", "nv")
+
+
+def _stage_chunk(outs):
+    """Start the one host copy of a chunk scan's small outputs: every
+    (1, k) field and the overflow flag, stacked as float64 (each value
+    exact there). Returns (host tensor, event or None, segs); segs stay
+    on the device for the decode."""
+    *small, segs = outs
+    k = small[0].shape[1]
+    small[2] = small[2][:, None].expand(-1, k)
+    stacked = torch.stack([t[0].to(torch.float64) for t in small])
+    if stacked.device.type != "cuda":
+        return stacked, None, segs[0]
+    host = stacked.to("cpu", non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done, segs[0]
+
+
+def _pull_chunk(staged):
+    """Wait for a chunk's staged copy and read it: (own, starts,
+    overflow, found, fstart, rb, ln, pk, nv, segs) as host values
+    (segs stay on the device). A device fault of the chunk surfaces
+    here, where callers re-run the chunk."""
+    host, done, segs = staged
+    if done is not None:
+        done.synchronize()
+    v = dict(zip(_CHUNK_FIELDS, host.numpy()))
+    as_int = {f: v[f].astype(np.int64) for f in
+              ("starts", "fstart", "rb", "ln", "nv")}
+    return (v["own"] != 0, as_int["starts"], bool(v["overflow"][0]),
+            v["found"] != 0, as_int["fstart"], as_int["rb"], as_int["ln"],
+            v["pk"] != 0, as_int["nv"], segs)
+
+
+def _record_degraded(entered: bool) -> None:
+    """The rx.degraded_mode gauge, and on entry the resilience.degraded
+    counter."""
+    dispatch.record_gauge("rx.degraded_mode", 1.0 if entered else 0.0)
+    if entered:
+        telemetry.count("resilience.degraded")
+
+
+def _contained(e: BaseException, strict: bool) -> bool:
+    """Whether failure `e` may degrade a receiver rather than raise.
+    Off the card every failure may, as in the reference. On the card
+    (`strict`) only an injected fault may: a real CUDA fault is sticky
+    and a kernel that fails to build or launch must not be carried on
+    with a plain version, so those raise."""
+    if not strict:
+        return True
+    if isinstance(e, resilience.DispatchFailed):
+        e = e.last
+    return isinstance(e, faults.InjectedFault)
+
+
+def _guarded_decode(r, label: str, dec, *args):
+    """The guarded decode and its host read, in one transfer: a device
+    fault surfaces at the read, so the read sits inside the same
+    containment (one guarded re-run, then None with the receiver
+    marked degraded; a failure :func:`_contained` refuses raises).
+    Returns (clear, crc) as host arrays, or None."""
+    for attempt in (0, 1):
+        try:
+            clear, crc = resilience.guarded(label, dec, *args,
+                                            policy=r._policy)
+            host = torch.cat([clear, crc[:, None].to(torch.uint8)], 1) \
+                .cpu().numpy()
+            return host[:, :-1], host[:, -1] != 0
+        except resilience.DispatchFailed as e:
+            if not _contained(e, r._strict):
+                raise
+            break
+        except Exception as e:   # noqa: BLE001 - fault at the read
+            if not _contained(e, r._strict):
+                raise
+            if attempt:
+                break
+            telemetry.count("resilience.async_rescans")
+    r._mark_degraded(scan=False)
+    return None
+
+
+def _gate_finite(arr: np.ndarray, name: str, sanitize: bool,
+                 health: _LaneHealth):
+    """Reject a slab with non-finite samples (an error naming the
+    stream), or under ``sanitize`` zero them and quarantine the lane.
+    Returns (arr, n_bad)."""
+    if arr.size == 0:
+        return arr, 0
+    bad = ~np.isfinite(arr)
+    if not bad.any():
+        return arr, 0
+    n_bad = int(bad.any(axis=-1).sum())
+    if not sanitize:
+        raise ValueError(
+            f"{name}: pushed slab carries {n_bad} non-finite "
+            f"sample(s); reject at the source or construct the "
+            f"receiver with sanitize=True to zero-and-quarantine")
+    arr = np.where(bad, np.float32(0), arr)
+    health.poison()
+    telemetry.count("resilience.sanitized", n_bad)
+    return arr, n_bad
+
+
+class StreamReceiver:
+    """Push-driven streaming receiver: feed sample slabs with
+    :meth:`push`, close the stream with :meth:`flush`; both return the
+    :class:`StreamFrame` s that became decodable.
+
+    Geometry: `chunk_len` samples a scan with `frame_len` of overlap
+    (`frame_len` a power-of-two capture bucket of at least 512 holding
+    the longest frame), so a frame starting in a chunk's owned region
+    (its first chunk_len - frame_len samples) lies inside that chunk.
+    Up to `max_frames_per_chunk` (K) frames a chunk; more raises the
+    chunk's overflow flag (counted in :class:`StreamStats`). ``geometry``
+    supplies the default of every knob left None. ``checkpoint`` (a blob
+    of :meth:`checkpoint`, of either package) resumes a stream. Runs on
+    `device` ("cuda" by default; the tests pass "cpu")."""
+
+    def __init__(self, chunk_len: Optional[int] = None,
+                 frame_len: Optional[int] = None,
+                 max_frames_per_chunk: Optional[int] = None,
+                 check_fcs: bool = False,
+                 threshold: Optional[float] = None,
+                 min_run: Optional[int] = None,
+                 dead_zone: Optional[int] = None,
+                 viterbi_window: Optional[int] = None,
+                 viterbi_metric: Optional[str] = None,
+                 viterbi_radix: Optional[int] = None,
+                 streaming: Optional[bool] = None,
+                 sanitize: bool = False,
+                 checkpoint: Optional[bytes] = None,
+                 sco_track: Optional[bool] = None,
+                 fused_demap: Optional[bool] = None,
+                 geometry: Optional[_geometry.Geometry] = None,
+                 device="cuda"):
+        geo = geometry if geometry is not None else _geometry.DEFAULT
+        chunk_len = geo.chunk_len if chunk_len is None else chunk_len
+        frame_len = geo.frame_len if frame_len is None else frame_len
+        max_frames_per_chunk = (geo.max_frames_per_chunk
+                                if max_frames_per_chunk is None
+                                else max_frames_per_chunk)
+        threshold = geo.threshold if threshold is None else threshold
+        min_run = geo.min_run if min_run is None else min_run
+        dead_zone = geo.dead_zone if dead_zone is None else dead_zone
+        viterbi_window = (geo.viterbi_window if viterbi_window is None
+                          else viterbi_window)
+        viterbi_metric = (geo.viterbi_metric if viterbi_metric is None
+                          else viterbi_metric)
+        viterbi_radix = (geo.viterbi_radix if viterbi_radix is None
+                         else viterbi_radix)
+        sco_track = geo.sco_track if sco_track is None else sco_track
+        fused_demap = (geo.fused_demap if fused_demap is None
+                       else fused_demap)
+
+        if frame_len != geo.capture_bucket(frame_len):
+            raise ValueError(
+                f"frame_len {frame_len} is not a power-of-two >= "
+                f"{geo.capture_bucket_min} capture bucket; per-capture "
+                f"receive would pad to {geo.capture_bucket(frame_len)} "
+                f"and the identity contract needs identical geometry")
+        if chunk_len <= frame_len:
+            raise ValueError(
+                f"chunk_len {chunk_len} must exceed the frame_len "
+                f"{frame_len} overlap (the owned region would be empty)")
+        self.device = _rx.check_device(device, "StreamReceiver")
+        self.chunk_len = int(chunk_len)
+        self.frame_len = int(frame_len)
+        self.stride = self.chunk_len - self.frame_len
+        self.k = int(max_frames_per_chunk)
+        # the largest DATA field a frame_len window holds, bucketed:
+        # the stream's one decode geometry
+        self.n_sym_bucket = geo.sym_bucket(
+            max(1, (self.frame_len - _rx.FRAME_DATA_START) // 80))
+        self.check_fcs = check_fcs
+        self.viterbi_window = viterbi_window
+        self.viterbi_metric = viterbi_metric
+        self.viterbi_radix = viterbi._check_radix(viterbi_radix)
+        self.sco_track = _rx.sco_track_enabled(sco_track)
+        self.fused_demap = _rx.fused_demap_enabled(fused_demap)
+        self.streaming = streaming_rx_enabled(streaming)
+        self._threshold = float(threshold)
+        self._min_run = int(min_run)
+        self._dead_zone = int(dead_zone)
+        self.sanitize = bool(sanitize)
+        self._policy = resilience.default_policy()
+        # on the card only an injected fault is contained (_contained)
+        self._strict = self.device.type == "cuda"
+        self._health = _LaneHealth()
+        self._dirty = False        # non-finite input since last chunk
+        self._sanitized = 0
+        self._lane_blowups = 0
+        self._degraded = False        # decode -> per-capture twin
+        self._scan_degraded = False   # scan -> its unguarded twin
+        self._tail = np.zeros((0, 2), np.float32)
+        self._offset = 0
+        self._emitted = 0
+        self._watermark = 0
+        self._seen = set()
+        self._pending = None       # (offset, host chunk, valid, own_hi,
+        #                            staged outputs)
+        self._inflight = 0
+        self._chunks = 0
+        self._overflow_chunks = 0
+        self._max_in_flight = 0
+        self._flushed = False
+        if checkpoint is not None:
+            st = resilience.restore_carry(checkpoint)
+            _validate_checkpoint(st, self._geometry())
+            self._tail = np.asarray(st.tail, np.float32)
+            self._offset = int(st.offset)
+            self._emitted = int(st.emitted)
+            self._watermark = int(st.watermark)
+            self._seen = set(st.seen)
+            # a quarantined receiver must resume quarantined
+            rs = st.state
+            self._health.quarantined = bool(rs.get("quarantined", False))
+            self._health.clean = int(rs.get("clean", 0))
+            self._health.blowups = int(rs.get("blowups", 0))
+            self._health.quarantines = int(rs.get("quarantines", 0))
+            self._dirty = bool(rs.get("dirty", False))
+            self._sanitized = int(rs.get("sanitized", 0))
+            self._lane_blowups = int(rs.get("lane_blowups", 0))
+            self._degraded = bool(rs.get("degraded", False))
+            self._scan_degraded = bool(rs.get("scan_degraded", False))
+
+    # -- state ----------------------------------------------------------
+
+    @property
+    def carry(self) -> StreamCarry:
+        return StreamCarry(self._tail, self._offset, self._emitted,
+                           self._watermark)
+
+    @property
+    def stats(self) -> StreamStats:
+        return StreamStats(self._chunks, self._emitted,
+                           self._overflow_chunks, self._max_in_flight,
+                           self._sanitized, self._health.quarantines,
+                           self._lane_blowups,
+                           self._degraded or self._scan_degraded)
+
+    def _geometry(self) -> dict:
+        return _stream_geometry(self)
+
+    def _runtime_state(self) -> dict:
+        """Quarantine health, degraded flags and containment counters:
+        the checkpoint's runtime state."""
+        return {"quarantined": self._health.quarantined,
+                "clean": self._health.clean,
+                "blowups": self._health.blowups,
+                "quarantines": self._health.quarantines,
+                "dirty": self._dirty,
+                "sanitized": self._sanitized,
+                "lane_blowups": self._lane_blowups,
+                "degraded": self._degraded,
+                "scan_degraded": self._scan_degraded}
+
+    def checkpoint(self):
+        """Serialize the live stream state after draining the chunk in
+        flight, whose frames are returned alongside. Returns
+        ``(state_bytes, frames)``; ``StreamReceiver(checkpoint=
+        state_bytes, ...)`` at the same geometry resumes with the same
+        emissions as the uninterrupted run."""
+        if self._flushed:
+            raise RuntimeError("checkpoint after flush")
+        out: List[StreamFrame] = []
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            out = self._drain(pend)
+        return resilience.checkpoint_carry(
+            self.carry, seen=self._seen, geometry=self._geometry(),
+            state=self._runtime_state()), out
+
+    # -- the push surface -----------------------------------------------
+
+    def push(self, samples) -> List[StreamFrame]:
+        """Append samples ((n, 2) float pairs) and scan every chunk
+        that completes. Returns the frames emitted. A malformed slab
+        raises; non-finite samples raise, or under ``sanitize=True``
+        are zeroed and quarantine the stream."""
+        if self._flushed:
+            raise RuntimeError("push after flush")
+        arr = _slab_array(samples, "stream")
+        arr, _kinds = faults.corrupt_slab("rx.push", arr)
+        arr, n_bad = _gate_finite(arr, "stream", self.sanitize,
+                                  self._health)
+        if n_bad:
+            self._sanitized += n_bad
+            self._dirty = True
+        if arr.size:
+            self._tail = np.concatenate([self._tail, arr], axis=0)
+
+        out: List[StreamFrame] = []
+        while self._tail.shape[0] >= self.chunk_len:
+            q = self._health.step(self._dirty)
+            self._dirty = False
+            out += self._launch(self._tail[:self.chunk_len],
+                                0 if q else self.chunk_len, self.stride)
+            self._tail = self._tail[self.stride:]
+            self._offset += self.stride
+            dispatch.record_gauge("rx.stream_carry_depth",
+                                  self._tail.shape[0])
+        return out
+
+    def flush(self) -> List[StreamFrame]:
+        """Close the stream: scan the carried tail (zero-padded to the
+        chunk length, owning every remaining start) and drain the chunk
+        in flight. Idempotent."""
+        if self._flushed:
+            return []
+        self._flushed = True
+        out: List[StreamFrame] = []
+        valid = self._tail.shape[0]
+        if valid:
+            q = self._health.step(self._dirty)
+            self._dirty = False
+            arr = np.zeros((self.chunk_len, 2), np.float32)
+            arr[:valid] = self._tail
+            out += self._launch(arr, 0 if q else valid, valid)
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            out += self._drain(pend)
+        return out
+
+    # -- chunk lifecycle ------------------------------------------------
+
+    def _upload(self, arr, valid: int, off: int, own_hi: int):
+        """A chunk and its (valid, own_lo, own_hi) on the device, as
+        the scan's arguments. The stream's first chunk owns starts down
+        to -192 (a head-truncated preamble, clamped to 0 as
+        per-capture acquisition clamps it); on a later chunk a negative
+        start is the previous chunk's frame."""
+        own_lo = -192 if off == 0 else 0
+        chunk = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device, non_blocking=True)[None]
+        lanes = torch.tensor([[valid], [own_lo], [own_hi]]).to(
+            self.device, non_blocking=True)
+        return (chunk, *lanes)
+
+    def _scan(self, chunk, valid, own_lo, own_hi):
+        with cplx.exact_fp32():
+            return _rx.stream_chunk_graph(
+                chunk, valid, own_lo, own_hi, self.k, self.frame_len,
+                self.n_sym_bucket, self._threshold, self._min_run,
+                self._dead_zone)
+
+    def _launch(self, arr, valid: int, own_hi: int) -> List[StreamFrame]:
+        """Launch chunk i's upload and scan, then drain chunk i-1.
+        Returns chunk i-1's emissions."""
+        staged = self._scan_dispatch(
+            self._upload(arr, valid, self._offset, own_hi))
+        dispatch.record_gauge(
+            "rx.degraded_mode",
+            1.0 if (self._degraded or self._scan_degraded) else 0.0)
+        dispatch.record_gauge(
+            "rx.quarantined_streams",
+            1.0 if self._health.quarantined else 0.0)
+        self._chunks += 1
+        self._inflight += 1
+        self._max_in_flight = max(self._max_in_flight, self._inflight)
+        dispatch.record_gauge("rx.stream_inflight", self._inflight)
+        pend, self._pending = self._pending, (self._offset, arr, valid,
+                                              own_hi, staged)
+        return self._drain(pend) if pend is not None else []
+
+    def _scan_dispatch(self, chunk_args):
+        """The guarded chunk scan, degrading to its unguarded twin
+        when it fails for good. Returns the staged outputs."""
+        if self._scan_degraded:
+            return self._eager_chunk(*chunk_args)
+        try:
+            outs = resilience.guarded("rx.stream_chunk", self._scan,
+                                      *chunk_args, policy=self._policy)
+        except resilience.DispatchFailed as e:
+            if not _contained(e, self._strict):
+                raise
+            self._mark_degraded(scan=True)
+            return self._eager_chunk(*chunk_args)
+        return _stage_chunk(outs)
+
+    def _rescan(self, arr, valid: int, off: int, own_hi: int):
+        """Re-run a chunk whose outputs were lost at the host read."""
+        telemetry.count("resilience.async_rescans")
+        return self._scan_dispatch(self._upload(arr, valid, off, own_hi))
+
+    def _drain(self, pend) -> List[StreamFrame]:
+        """Read a launched chunk's small outputs, run the host decision
+        tree, and emit its frames: one decode of the decodable lanes,
+        or per-capture ``rx.receive`` per window in the oracle mode."""
+        off, arr, valid, own_hi, staged = pend
+        try:
+            (own, starts, overflow, found, fstart, rb, ln, pk, nv,
+             segs) = _pull_chunk(staged)
+        except Exception as e:   # noqa: BLE001 - lost outputs, re-run
+            if not _contained(e, self._strict):
+                raise
+            (own, starts, overflow, found, fstart, rb, ln, pk, nv,
+             segs) = _pull_chunk(self._rescan(arr, valid, off, own_hi))
+        self._inflight -= 1
+        if overflow:
+            self._overflow_chunks += 1
+
+        self._watermark = off
+        self._seen, cands = _chunk_candidates(self._seen, off, own,
+                                              starts, self.k)
+        if not self.streaming or self._degraded:
+            return self._decode_oracle(cands, starts, arr, valid)
+
+        emit = {}
+        # decodable lanes: (abs_start, lane row, rate, n_sym, length)
+        lanes = []
+        for abs_start, j in cands:
+            avail = int(nv[j]) - int(fstart[j])
+            res, ok = _rx._classify_acquire(
+                bool(found[j]), avail, int(rb[j]), int(ln[j]), bool(pk[j]))
+            if ok is None:
+                emit[abs_start] = res
+            else:
+                lanes.append((abs_start, j, ok[0], ok[1], int(ln[j])))
+        if lanes:
+            # rows always pad to K (lane 0 repeated): one decode
+            # geometry for every chunk of the stream
+            def row_pad(vals):
+                return list(vals) + [vals[0]] * (self.k - len(vals))
+
+            rows = row_pad([j for _s, j, _m, _n, _lb in lanes])
+            ridx = row_pad([RATE_INDEX[m] for _s, _j, m, _n, _lb in lanes])
+            nbits = row_pad([n_sym * RATES[m].n_dbps
+                             for _s, _j, m, n_sym, _lb in lanes])
+            npsdu = row_pad([8 * lb for _s, _j, _m, _n, lb in lanes])
+            got = _guarded_decode(self, "rx.stream_decode", self._decode,
+                                  segs, rows, ridx, nbits, npsdu)
+            if got is None:
+                # the decode failed for good: the per-capture twin for
+                # this chunk and the rest of the stream
+                return self._decode_oracle(cands, starts, arr, valid)
+            clear, crc = got
+            for i, (abs_start, _j, m, _n, lb) in enumerate(lanes):
+                psdu = clear[i][N_SERVICE_BITS: N_SERVICE_BITS + 8 * lb]
+                emit[abs_start] = _rx.RxResult(
+                    True, m, lb, psdu,
+                    bool(crc[i]) if self.check_fcs else None)
+        out = [StreamFrame(s, emit[s]) for s in sorted(emit)]
+        self._emitted += len(out)
+        self._note_emitted(len(out))
+        return out
+
+    def _decode(self, segs, rows, ridx, nbits, npsdu):
+        with cplx.exact_fp32():
+            return _rx.stream_decode_graph(
+                segs, rows, ridx, nbits, npsdu, self.n_sym_bucket,
+                self.viterbi_window, self.viterbi_metric,
+                self.viterbi_radix, self.sco_track, self.fused_demap)
+
+    def _decode_oracle(self, cands, starts, arr,
+                       valid: int) -> List[StreamFrame]:
+        """Per-capture ``rx.receive`` over the chunk's owned windows:
+        the ``streaming=False`` oracle and the degraded decode. Under
+        ``sanitize`` or degraded mode a window whose receive raises is
+        counted (``resilience.lane_blowups``), dropped and charged to
+        the stream's health; in the plain oracle the error propagates."""
+        contain = self.sanitize or self._degraded or self._scan_degraded
+        out: List[StreamFrame] = []
+        for abs_start, j in cands:
+            s = int(starts[j])
+            win = arr[s: min(s + self.frame_len, valid)]
+            try:
+                res = _rx.receive(
+                    win, check_fcs=self.check_fcs,
+                    viterbi_window=self.viterbi_window,
+                    viterbi_metric=self.viterbi_metric,
+                    viterbi_radix=self.viterbi_radix,
+                    sco_track=self.sco_track, device=self.device)
+            except Exception as e:   # noqa: BLE001 - counted containment
+                if not contain or not _contained(e, self._strict):
+                    raise
+                self._lane_blowups += 1
+                self._health.blowup()
+                telemetry.count("resilience.lane_blowups")
+                continue
+            out.append(StreamFrame(abs_start, res))
+        self._emitted += len(out)
+        self._note_emitted(len(out))
+        return out
+
+    def _eager_chunk(self, chunk, valid, own_lo, own_hi):
+        """The degraded scan: the same graph outside the guard,
+        labelled ``rx.stream_chunk.eager`` (a fault plan aimed at the
+        guarded site never blocks it)."""
+        with dispatch.timed("rx.stream_chunk.eager"):
+            return _stage_chunk(self._scan(chunk, valid, own_lo, own_hi))
+
+    def _mark_degraded(self, scan: bool) -> None:
+        if scan:
+            self._scan_degraded = True
+        else:
+            self._degraded = True
+        _record_degraded(True)
+
+    def reset_degraded(self) -> None:
+        """Leave degraded mode: the next chunk tries the guarded steps
+        again."""
+        self._degraded = False
+        self._scan_degraded = False
+        _record_degraded(False)
+
+    def _note_emitted(self, k: int) -> None:
+        if k:
+            telemetry.count("rx.stream_frames", k)
+
+
+def receive_stream(samples, chunk_len: Optional[int] = None,
+                   frame_len: Optional[int] = None,
+                   max_frames_per_chunk: Optional[int] = None,
+                   check_fcs: bool = False,
+                   threshold: Optional[float] = None,
+                   min_run: Optional[int] = None,
+                   dead_zone: Optional[int] = None,
+                   viterbi_window: Optional[int] = None,
+                   viterbi_metric: Optional[str] = None,
+                   viterbi_radix: Optional[int] = None,
+                   streaming: Optional[bool] = None,
+                   sco_track: Optional[bool] = None,
+                   fused_demap: Optional[bool] = None,
+                   geometry: Optional[_geometry.Geometry] = None,
+                   device="cuda"):
+    """Decode every frame of a long multi-frame stream ((n, 2) float32
+    I/Q) through one :class:`StreamReceiver`. Returns ``(frames,
+    stats)``: the position-ordered :class:`StreamFrame` s, each equal
+    field for field to per-capture ``rx.receive(stream[start : start +
+    frame_len], check_fcs=...)``, and the :class:`StreamStats`."""
+    sr = StreamReceiver(chunk_len=chunk_len, frame_len=frame_len,
+                        max_frames_per_chunk=max_frames_per_chunk,
+                        check_fcs=check_fcs, threshold=threshold,
+                        min_run=min_run, dead_zone=dead_zone,
+                        viterbi_window=viterbi_window,
+                        viterbi_metric=viterbi_metric,
+                        viterbi_radix=viterbi_radix,
+                        streaming=streaming, sco_track=sco_track,
+                        fused_demap=fused_demap, geometry=geometry,
+                        device=device)
+    frames = sr.push(samples)
+    frames += sr.flush()
+    return frames, sr.stats

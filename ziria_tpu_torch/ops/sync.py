@@ -149,6 +149,62 @@ def locate_frame(samples: torch.Tensor, limit=None, window: int = 48,
     return detected, frame_start, eps_c + eps_f
 
 
+def locate_frames(samples: torch.Tensor, k: int, limit=None,
+                  window: int = 48, threshold: float = 0.75,
+                  min_run: int = 33, dead_zone: int = 320,
+                  align_back: int = 32, align_span: int = 416,
+                  overflow_limit=None):
+    """Up to ``k`` frame starts in each multi-frame chunk of (B, n, 2),
+    as the reference's ``locate_frames`` finds them in one: a plateau
+    gate (``min_run`` consecutive positions above ``threshold``), top-K
+    extraction (take the first eligible plateau start, suppress
+    ``dead_zone`` positions past it, ``k`` times), and a local LTS
+    peak-pick in ``[d - align_back, d - align_back + align_span)`` of
+    each crossing d. Returns (found (B, k), starts (B, k) int64,
+    ascending, -1 where not found; overflow (B,): an eligible plateau
+    remains past the k taken).
+
+    ``limit`` (B,) caps the plateau gate and the peak-pick to the
+    positions a limit-length capture would evaluate; ``overflow_limit``
+    (B,) caps the positions the overflow scan considers. The k
+    extraction steps are k tensor steps with no host read; argmax takes
+    the first index on ties, as the reference's does."""
+    b, n = samples.shape[:2]
+    dev = samples.device
+    full = torch.full((b,), n, dtype=torch.int64, device=dev)
+    lim = full if limit is None else limit
+    metric, _ = sts_autocorr(samples, window)
+    pos = torch.arange(metric.shape[1], device=dev)
+    above = (metric > threshold) \
+        & (pos[None, :] < (lim - 16 - window + 1)[:, None])
+    # ok[:, p] <=> positions [p, p + min_run) all above: the exact
+    # integer path of _sliding_sum
+    ok = _sliding_sum(above.to(torch.int32), min_run) == min_run
+    idx = torch.arange(ok.shape[1], device=dev)[None, :]
+    next_free = torch.zeros((b,), dtype=torch.int64, device=dev)
+    found, d = [], []
+    for _ in range(k):
+        cand = ok & (idx >= next_free[:, None])
+        f = cand.any(dim=1)
+        di = torch.argmax(cand.to(torch.uint8), dim=1)   # first eligible
+        next_free = torch.where(f, di + dead_zone, next_free)
+        found.append(f)
+        d.append(di)
+    found, d = torch.stack(found, 1), torch.stack(d, 1)
+    rem = ok & (idx >= next_free[:, None])
+    if overflow_limit is not None:
+        rem = rem & (idx < overflow_limit[:, None])
+    overflow = rem.any(dim=1)
+    pair = lts_pair_metric(samples, limit=lim)               # (B, P)
+    pidx = torch.arange(pair.shape[1], device=dev)
+    lo = (d - align_back)[..., None]
+    local = torch.where((pidx >= lo) & (pidx < lo + align_span),
+                        pair[:, None, :], pair.new_full((), -1.0))
+    starts = torch.argmax(local, dim=2) - 192
+    return found, torch.where(found, starts, torch.full_like(starts, -1)), \
+        overflow
+
+
 def estimate_channel(samples: torch.Tensor):
     """Channel estimate (B, 64, 2) from the two LTS symbols of aligned,
     CFO-corrected frames (zero on unused bins, H == 1 for an identity

@@ -35,7 +35,7 @@ from ziria_tpu_torch.phy.wifi.params import (MAX_DBPS, N_SERVICE_BITS,
                                              RATE_MBPS_ORDER, RATES,
                                              SIGNAL_BITS_TO_MBPS,
                                              RateParams, n_symbols)
-from ziria_tpu_torch.utils import geometry
+from ziria_tpu_torch.utils import dispatch, geometry
 from ziria_tpu_torch.utils.bits import bits_to_uint
 from ziria_tpu_torch.utils.dispatch import pow2_ceil
 
@@ -391,7 +391,8 @@ def acquire_batch(x_dev, n_valid, limits, n_lanes: int):
                          device=dev)
     lim = torch.as_tensor(np.asarray(limits), dtype=torch.int64,
                           device=dev)
-    outs = acquire_frame_graph(x_dev, nv, lim)
+    with dispatch.timed("rx.acquire_many"):
+        outs = acquire_frame_graph(x_dev, nv, lim)
     # one transfer: every field is exact in float64 (eps is float32)
     host = torch.stack([o.to(torch.float64) for o in outs], 1).cpu().numpy()
     found_b, start_b, eps_b, rb_b, ln_b, pk_b = host.T
@@ -439,6 +440,21 @@ def acquire_many(captures, max_samples: int = 1 << 16, device="cuda"):
     return results, x_dev, lanes
 
 
+def gather_segment_graph(x, start, eps, avail, n_sym_bucket: int):
+    """Each lane's data region of (B, L, 2) captures at its own start,
+    zeroed past its available samples and derotated by its own CFO, at
+    one symbol bucket: (B, FRAME_DATA_START + 80*n_sym_bucket, 2).
+    start, eps and avail are (B,) tensors on x's device; nothing is
+    read back to the host. `x` must be padded so start + the segment
+    never clamps (a start past the end clamps, as the reference's
+    ``dynamic_slice`` does)."""
+    need_b = FRAME_DATA_START + 80 * n_sym_bucket
+    seg = sync.dynamic_slice(x, start, need_b)
+    keep = torch.arange(need_b, device=x.device)[None, :] \
+        < avail.clamp(max=need_b)[:, None]
+    return sync.correct_cfo(torch.where(keep[..., None], seg, 0.0), eps)
+
+
 def gather_segments_many(x_dev, lanes, n_sym_bucket: int):
     """Slice every lane's data region at its own start, zero it past
     the lane's available samples and apply its own CFO rotation, at one
@@ -447,19 +463,16 @@ def gather_segments_many(x_dev, lanes, n_sym_bucket: int):
     already padded to the target lane count."""
     dev = x_dev.device
     need_b = FRAME_DATA_START + 80 * n_sym_bucket
-    rows = torch.tensor([la.row for la in lanes], device=dev)
-    start = torch.tensor([la.start for la in lanes], device=dev)
+    cols = torch.tensor([[la.row, la.start, la.avail] for la in lanes],
+                        device=dev)
     eps = torch.tensor([la.eps for la in lanes], dtype=torch.float32,
                        device=dev)
-    avail = torch.tensor([la.avail for la in lanes], device=dev)
     # tail-pad so start + need_b stays in range (the reference pads
     # because dynamic_slice would clamp the start and shift the lane)
-    x = torch.nn.functional.pad(x_dev[rows], (0, 0, 0, need_b))
-    seg = sync.dynamic_slice(x, start, need_b)
-    n = avail.clamp(max=need_b)
-    keep = torch.arange(need_b, device=dev)[None, :] < n[:, None]
-    seg = torch.where(keep[..., None], seg, 0.0)
-    return sync.correct_cfo(seg, eps)
+    x = torch.nn.functional.pad(x_dev[cols[:, 0]], (0, 0, 0, need_b))
+    with dispatch.timed("rx.gather"):
+        return gather_segment_graph(x, cols[:, 1], eps, cols[:, 2],
+                                    n_sym_bucket)
 
 
 # ------------------------------------------------- per-capture receive
@@ -515,7 +528,8 @@ def _acquire_frame(samples, max_samples: int = 1 << 16, device="cuda"):
     on any failure, (None, _Acquired) on success."""
     x, n_valid = _bucket_pad(np.asarray(samples, np.float32)[:max_samples])
     x_dev = torch.from_numpy(x).to(device)[None]
-    found, start, eps = sync_frame(x_dev)
+    with dispatch.timed("rx.sync"):
+        found, start, eps = sync_frame(x_dev)
     found_h, start_h, eps_h = _host(found, start, eps)
     found, start = bool(found_h), int(start_h)
     avail = n_valid - start
@@ -524,8 +538,11 @@ def _acquire_frame(samples, max_samples: int = 1 << 16, device="cuda"):
     if found and avail >= 400:
         # the 400-sample head now, the data region after the SIGNAL
         # parse: both rotations start at the frame start
-        head = sync.correct_cfo(x_dev[:, start:start + 400], eps)
-        rb, ln, pk = _host(*decode_signal(head))
+        with dispatch.timed("rx.cfo_head"):
+            head = sync.correct_cfo(x_dev[:, start:start + 400], eps)
+        with dispatch.timed("rx.signal"):
+            sig = decode_signal(head)
+        rb, ln, pk = _host(*sig)
         rate_bits, length_bytes, parity_ok = int(rb), int(ln), bool(pk)
     res, ok = _classify_acquire(found, avail, rate_bits, length_bytes,
                                 parity_ok)
@@ -546,8 +563,9 @@ def _padded_segment(acq: _Acquired, n_sym_bucket: int, device="cuda"):
     n = min(acq.avail, need_b)
     frame_pad[:n] = acq.frame_np[:n]
     eps = torch.tensor([acq.eps], dtype=torch.float32, device=device)
-    return sync.correct_cfo(torch.from_numpy(frame_pad).to(device)[None],
-                            eps)[0]
+    with dispatch.timed("rx.cfo_segment"):
+        return sync.correct_cfo(
+            torch.from_numpy(frame_pad).to(device)[None], eps)[0]
 
 
 def check_device(device, caller: str) -> torch.device:
@@ -584,18 +602,25 @@ def receive(samples, check_fcs: bool = False,
     ZIRIA_FUSED_DEMAP) runs the known-rate fused kernel and the
     traceback kernel instead, at float32 metrics without a window.
     ``sco_track`` (or ZIRIA_RX_SCO_TRACK) adds the pilot phase-ramp
-    tracking. Runs on `device` ("cuda" by default; the tests pass
-    "cpu"). ``fxp`` and a ``geometry`` object raise
-    NotImplementedError naming the ROADMAP.md item that ports them."""
+    tracking. ``geometry`` (a ``utils.geometry.Geometry``) supplies the
+    default of every decode-mode knob left None. Runs on `device`
+    ("cuda" by default; the tests pass "cpu"). ``fxp`` raises
+    NotImplementedError naming the ROADMAP.md item that ports it."""
     if fxp:
         raise NotImplementedError(
             "receive(fxp=True) is not ported yet (ROADMAP.md queue 1, "
             "item 9, 'Fixed-point path and entry points')")
     if geometry is not None:
-        raise NotImplementedError(
-            "receive(geometry=...) is not ported yet; the port has the "
-            "default bucket rules only (ROADMAP.md queue 1, item 6, "
-            "'Observability, geometry and bench on GPU')")
+        viterbi_window = (geometry.viterbi_window
+                          if viterbi_window is None else viterbi_window)
+        viterbi_metric = (geometry.viterbi_metric
+                          if viterbi_metric is None else viterbi_metric)
+        viterbi_radix = (geometry.viterbi_radix
+                         if viterbi_radix is None else viterbi_radix)
+        fused_demap = (geometry.fused_demap
+                       if fused_demap is None else fused_demap)
+        sco_track = (geometry.sco_track
+                     if sco_track is None else sco_track)
     device = check_device(device, "receive")
     with cplx.exact_fp32():
         res, acq = _acquire_frame(samples, max_samples, device)
@@ -604,12 +629,112 @@ def receive(samples, check_fcs: bool = False,
         rate = RATES[acq.rate_mbps]
         n_sym_b = _sym_bucket(acq.n_sym)
         seg = _padded_segment(acq, n_sym_b, device)
-        clear = decode_data_bucketed(
-            seg, rate, n_sym_b, acq.n_sym * rate.n_dbps, viterbi_window,
-            viterbi_metric, viterbi._check_radix(viterbi_radix),
-            fused_demap_enabled(fused_demap),
-            sco_track_enabled(sco_track))
+        with dispatch.timed("rx.decode_bucketed"):
+            clear = decode_data_bucketed(
+                seg, rate, n_sym_b, acq.n_sym * rate.n_dbps,
+                viterbi_window, viterbi_metric,
+                viterbi._check_radix(viterbi_radix),
+                fused_demap_enabled(fused_demap),
+                sco_track_enabled(sco_track))
         psdu = clear[N_SERVICE_BITS: N_SERVICE_BITS + 8 * acq.length_bytes]
         crc = bool(check_crc32(psdu)) if check_fcs else None
         return RxResult(True, acq.rate_mbps, acq.length_bytes,
                         psdu.cpu().numpy(), crc)
+
+
+# ------------------------------------------------------ streaming receiver
+#
+# The per-chunk device half of ``backend/framebatch.StreamReceiver``:
+# :func:`stream_chunk_graph` turns long multi-frame chunks into K
+# candidate lanes each (multi-frame detect, per-candidate windows, the
+# batched per-window acquisition, the gather at one fixed symbol
+# bucket) without reading the host; :func:`stream_decode_graph` decodes
+# a chunk's decodable lanes. Between the two the host runs only the
+# integer decision tree, on one transfer of the chunk's small outputs.
+
+
+def _stream_bucket_graph(n_valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """Tensor twin of ``geometry.capture_bucket`` (the reference's
+    ``_stream_bucket``) for true sample counts up to the window length
+    `cap`: an exact compare ladder (float log2 would not be exact)."""
+    b = torch.full_like(n_valid, geometry.CAPTURE_BUCKET_MIN)
+    m = geometry.CAPTURE_BUCKET_MIN
+    while m < cap:
+        m *= 2
+        b = torch.where(n_valid > m // 2, torch.full_like(b, m), b)
+    return b
+
+
+def stream_chunk_graph(chunk, chunk_valid, own_lo, own_hi, k: int,
+                       win_len: int, n_sym_bucket: int,
+                       threshold: float = 0.75, min_run: int = 33,
+                       dead_zone: int = 320):
+    """The chunk scan of S streams' chunks (S, n, 2), with per-stream
+    (S,) int64 tensors chunk_valid (real samples), own_lo and own_hi
+    (the owned start range): the reference's ``stream_chunk_graph``
+    over a leading stream axis (S = 1 for one stream).
+
+    1. ``sync.locate_frames``: up to k starts per chunk over its valid
+       samples, the overflow scan capped at own_hi + 224 (a frame
+       aligned at s can cross the plateau gate as late as s + 224);
+    2. ownership: starts in [own_lo, own_hi) are the chunk's, clamped
+       to 0 (own_lo is -192 on a stream's first chunk, for a
+       head-truncated preamble, else 0);
+    3. each candidate's win_len-sample window at clip(start, 0, n) of
+       the chunk tail-padded by win_len, its true count and own
+       power-of-two bucket as its detector cap;
+    4. the batched per-window acquisition (:func:`acquire_frame_graph`);
+    5. the gather of every window's data region at n_sym_bucket.
+
+    Returns (own, starts, overflow, found, fstart, eps, rate_bits,
+    length, parity_ok, n_valid, segs): (S, k) per lane, overflow (S,),
+    segs (S, k, FRAME_DATA_START + 80*n_sym_bucket, 2). No value is
+    read back to the host."""
+    streams, n = chunk.shape[:2]
+    dev = chunk.device
+    found, starts, overflow = sync.locate_frames(
+        chunk, k, limit=chunk_valid, threshold=threshold, min_run=min_run,
+        dead_zone=dead_zone, overflow_limit=own_hi + 224)
+    own = found & (starts >= own_lo[:, None]) & (starts < own_hi[:, None])
+    starts = torch.where(own, starts.clamp(min=0), starts)
+    safe = starts.clamp(0, n)
+    chunk_pad = torch.nn.functional.pad(chunk, (0, 0, 0, win_len))
+    idx = (safe[..., None] + torch.arange(win_len, device=dev))[..., None]
+    wins = torch.gather(chunk_pad[:, None].expand(-1, k, -1, -1), 2,
+                        idx.expand(-1, -1, -1, 2))
+    wins = wins.reshape(streams * k, win_len, 2)
+    nv = (chunk_valid[:, None] - safe).clamp(0, win_len).reshape(-1)
+    lim = _stream_bucket_graph(nv, win_len)
+    f2, fstart, eps, rb, ln, pk = acquire_frame_graph(wins, nv, lim)
+    need_b = FRAME_DATA_START + 80 * n_sym_bucket
+    wins_pad = torch.nn.functional.pad(wins, (0, 0, 0, need_b))
+    segs = gather_segment_graph(wins_pad, fstart, eps, nv - fstart,
+                                n_sym_bucket)
+    lanes = [t.reshape(streams, k)
+             for t in (f2, fstart, eps, rb, ln, pk, nv)]
+    return (own, starts, overflow, *lanes,
+            segs.reshape((streams, k) + segs.shape[1:]))
+
+
+def stream_decode_graph(segs, rows, ridx, nbits, npsdu, n_sym_bucket: int,
+                        viterbi_window: int = None,
+                        viterbi_metric: str = None,
+                        viterbi_radix: int = None,
+                        sco_track: bool = False,
+                        fused_demap: bool = False):
+    """The decode of a chunk's decodable lanes (the body of the
+    reference's ``_jit_stream_decode``): segs (k, need_b, 2) from
+    :func:`stream_chunk_graph`, rows (k,) the lane rows to decode
+    (padded to k with the first), ridx and nbits (k,) host ints, npsdu
+    (k,) PSDU bit counts, all host ints. Row-selects on the device, runs
+    :func:`decode_data_mixed` and always the masked CRC
+    (:func:`crc_psdu_many_graph`). Returns (clear (k, n_sym_bucket *
+    MAX_DBPS) uint8, crc (k,) bool), both on segs' device."""
+    # both index rows in one upload, without a stream sync
+    rows_t, npsdu_t = torch.tensor([rows, npsdu]).to(segs.device,
+                                                     non_blocking=True)
+    clear = decode_data_mixed(segs[rows_t], ridx, nbits, n_sym_bucket,
+                              viterbi_window, viterbi_metric,
+                              viterbi_radix, sco_track=sco_track,
+                              fused_demap=fused_demap)
+    return clear, crc_psdu_many_graph(clear, npsdu_t)

@@ -1,0 +1,196 @@
+"""Seeded, scoped fault injection at the receivers' seams (counterpart
+of ziria_tpu/utils/faults.py: ``FaultSpec``, ``FaultPlan``, ``inject``,
+``active``, ``maybe_fail`` and ``corrupt_slab`` with the ``nan_slab``
+and ``truncate`` kinds, and the injected error classes).
+
+:func:`inject` activates a :class:`FaultPlan` for a block. Every
+decision is deterministic by (site, seed, call index), computed as the
+reference computes it, so one plan hits the same calls in both
+packages. Two seams consume it: :func:`maybe_fail` just before a
+guarded dispatch fires (``transient``, ``fatal``, ``delay``, ``hang``)
+and :func:`corrupt_slab` on a pushed sample slab (``nan_slab``,
+``truncate``). When no plan is active each seam costs one truthiness
+check.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import hashlib
+import threading
+import time
+from contextlib import contextmanager
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+_LOCK = threading.Lock()            # guards (de)activation only
+_PLANS: Tuple["FaultPlan", ...] = ()
+
+DATA_KINDS = ("nan_slab", "truncate")
+DISPATCH_KINDS = ("transient", "fatal", "delay", "hang")
+KINDS = DATA_KINDS + DISPATCH_KINDS
+
+
+class InjectedFault(Exception):
+    """Base of the injected error classes (never raised itself)."""
+
+
+class InjectedTransientError(InjectedFault):
+    """An injected retryable dispatch failure (``UNAVAILABLE: ...``)."""
+
+
+class InjectedFatalError(InjectedFault):
+    """An injected non-retryable dispatch failure
+    (``INVALID_ARGUMENT: ...``)."""
+
+
+class FaultSpec(NamedTuple):
+    """One injectable fault: fire ``kind`` at sites matching the
+    fnmatch pattern ``site`` on the calls picked by exactly one of
+    ``calls`` (0-based per-site call indices), ``every`` (every Nth
+    call) or ``p`` (a probability decided by a hash of (site, seed,
+    call index)). ``count`` bounds the firings (0: unbounded);
+    ``delay_s`` is the sleep of delay and hang; ``fraction`` the slab
+    share nan_slab and truncate touch."""
+    site: str
+    kind: str
+    calls: Tuple[int, ...] = ()
+    every: int = 0
+    p: float = 0.0
+    count: int = 0
+    delay_s: float = 0.01
+    fraction: float = 0.25
+
+
+def _unit(site: str, seed: int, idx: int) -> float:
+    """Deterministic uniform in [0, 1) from (site, seed, call index)."""
+    h = hashlib.sha256(f"{site}\x00{seed}\x00{idx}".encode()).digest()
+    return int.from_bytes(h[:8], "big") / float(1 << 64)
+
+
+class FaultPlan:
+    """The decision state of one :func:`inject` block: per-site call
+    counters, per-spec firing counts and the log of fired faults
+    (``fired``: (site, kind, call index))."""
+
+    def __init__(self, specs, seed: int = 0):
+        specs = tuple(specs)
+        for sp in specs:
+            if sp.kind == "channel":
+                raise NotImplementedError(
+                    "fault kind 'channel' is not ported yet: it needs "
+                    "phy/profiles.py (ROADMAP.md queue 1, item 3, 'TX, "
+                    "channel and link')")
+            if sp.kind not in KINDS:
+                raise ValueError(
+                    f"unknown fault kind {sp.kind!r} (known: {KINDS})")
+            if sum((len(sp.calls) > 0, sp.every > 0, sp.p > 0)) != 1:
+                raise ValueError(
+                    f"spec {sp.site}:{sp.kind} needs exactly one of "
+                    f"calls=/every=/p= to select its firing calls")
+        self.specs = specs
+        self.seed = int(seed)
+        self._lock = threading.Lock()
+        self._idx: Dict[str, int] = {}
+        self._spec_fired = [0] * len(specs)
+        self.fired: List[Tuple[str, str, int]] = []
+
+    def decide(self, site: str, kinds) -> Optional[Tuple[FaultSpec, int]]:
+        """Advance ``site``'s call counter; return the first matching
+        spec of ``kinds`` that fires at this call, with the call index,
+        or None."""
+        with self._lock:
+            idx = self._idx.get(site, 0)
+            self._idx[site] = idx + 1
+            for j, sp in enumerate(self.specs):
+                if sp.kind not in kinds:
+                    continue
+                if sp.count and self._spec_fired[j] >= sp.count:
+                    continue
+                if not fnmatch.fnmatchcase(site, sp.site):
+                    continue
+                if sp.calls:
+                    hit = idx in sp.calls
+                elif sp.every:
+                    hit = (idx + 1) % sp.every == 0
+                else:
+                    hit = _unit(f"{site}#{j}", self.seed, idx) < sp.p
+                if hit:
+                    self._spec_fired[j] += 1
+                    self.fired.append((site, sp.kind, idx))
+                    return sp, idx
+        return None
+
+
+def active() -> bool:
+    """True when any fault plan is injecting."""
+    return bool(_PLANS)
+
+
+@contextmanager
+def inject(*specs: FaultSpec, seed: int = 0,
+           plan: Optional[FaultPlan] = None):
+    """Activate a :class:`FaultPlan` (from ``specs`` and ``seed``, or
+    the one passed in) for the block; yields it."""
+    global _PLANS
+    p = plan if plan is not None else FaultPlan(specs, seed=seed)
+    with _LOCK:
+        _PLANS = _PLANS + (p,)
+    try:
+        yield p
+    finally:
+        with _LOCK:
+            lst = list(_PLANS)
+            del lst[len(lst) - 1 - lst[::-1].index(p)]
+            _PLANS = tuple(lst)
+
+
+def maybe_fail(site: str) -> None:
+    """The dispatch seam: a matching delay or hang sleeps ``delay_s``,
+    a transient or fatal spec raises its injected error."""
+    if not _PLANS:
+        return
+    for plan in _PLANS:
+        got = plan.decide(site, DISPATCH_KINDS)
+        if got is None:
+            continue
+        sp, idx = got
+        if sp.kind in ("delay", "hang"):
+            time.sleep(sp.delay_s)
+        elif sp.kind == "transient":
+            raise InjectedTransientError(
+                f"UNAVAILABLE: injected transient fault at {site} "
+                f"(call {idx})")
+        else:
+            raise InjectedFatalError(
+                f"INVALID_ARGUMENT: injected fatal fault at {site} "
+                f"(call {idx})")
+
+
+def corrupt_slab(site: str, arr: np.ndarray):
+    """The data seam, on an incoming (n, 2) sample slab: ``nan_slab``
+    NaN-poisons a deterministic ``fraction`` of the rows (rows drawn
+    from a generator seeded by (site, seed, call index)), ``truncate``
+    drops the tail ``fraction``. Returns (slab, kinds fired)."""
+    if not _PLANS:
+        return arr, ()
+    kinds: List[str] = []
+    for plan in _PLANS:
+        got = plan.decide(site, DATA_KINDS)
+        if got is None:
+            continue
+        sp, idx = got
+        n = int(arr.shape[0]) if arr.ndim else 0
+        if sp.kind == "nan_slab" and n:
+            arr = np.array(arr, copy=True)
+            k = max(1, int(n * sp.fraction))
+            rs = np.random.default_rng(
+                int(_unit(site, plan.seed, idx) * (1 << 53)))
+            rows = rs.choice(n, size=min(k, n), replace=False)
+            arr[rows] = np.nan
+        elif sp.kind == "truncate" and n > 1:
+            keep = max(1, n - max(1, int(n * sp.fraction)))
+            arr = arr[:keep]
+        kinds.append(sp.kind)
+    return arr, tuple(kinds)

@@ -1,13 +1,17 @@
-"""The default bucket rules of the receive path and the environment
-readers of its decode knobs (counterpart of
-ziria_tpu/utils/geometry.py: ``Geometry`` at its defaults, :166-192,
-the knobs' legal values :63-65 and the readers ``env_viterbi_window``,
+"""The bucket rules of the receive path, the environment readers of
+its decode knobs and the :class:`Geometry` object that gathers every
+tunable (counterpart of ziria_tpu/utils/geometry.py: the knobs' legal
+values :63-65, the readers ``env_viterbi_window``,
 ``env_viterbi_metric``, ``env_viterbi_radix``, ``env_fused_demap`` and
-``env_sco_track``, :80-134)."""
+``env_sco_track``, :80-134, and ``Geometry`` :153-280 without
+``tuned``)."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
+from typing import Any, Dict, Optional
 
 from ziria_tpu_torch.utils.dispatch import pow2_bucket
 
@@ -77,3 +81,93 @@ def env_sco_track() -> bool:
     """ZIRIA_RX_SCO_TRACK (default off): pilot phase-ramp tracking for
     a sampling-clock offset."""
     return os.environ.get("ZIRIA_RX_SCO_TRACK", "0") == "1"
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Every tunable of the receive paths in one frozen, hashable value:
+    the streaming window, the bucket floors, the detector parameters
+    and the decode-mode knobs. The field defaults are the receivers'
+    constants, so ``Geometry()`` builds the default receiver; a
+    decode-mode knob of None means "read its environment default"
+    (:meth:`resolve`)."""
+
+    # streaming window geometry
+    chunk_len: int = 1 << 13
+    frame_len: int = 2048
+    max_frames_per_chunk: int = 8         # K
+    n_streams: int = 8                    # S, the fleet width
+    # power-of-two bucket floors
+    sym_bucket_min: int = SYM_BUCKET_MIN
+    capture_bucket_min: int = CAPTURE_BUCKET_MIN
+    bit_bucket_min: int = 128
+    # detector parameters
+    threshold: float = 0.75
+    min_run: int = 33
+    dead_zone: int = 320
+    # decode-mode knobs; None = the environment default (resolve())
+    viterbi_window: Optional[int] = None
+    viterbi_metric: Optional[str] = None
+    viterbi_radix: Optional[int] = None
+    fused_demap: Optional[bool] = None
+    sco_track: Optional[bool] = None
+
+    def sym_bucket(self, n_sym: int) -> int:
+        """Power-of-two DATA symbol bucket."""
+        return pow2_bucket(n_sym, self.sym_bucket_min)
+
+    def capture_bucket(self, n: int) -> int:
+        """Power-of-two capture bucket."""
+        return pow2_bucket(n, self.capture_bucket_min)
+
+    def bit_bucket(self, n_bits: int) -> int:
+        """Power-of-two PSDU bit bucket."""
+        return pow2_bucket(n_bits, self.bit_bucket_min)
+
+    def resolve(self) -> "Geometry":
+        """Every None decode-mode knob replaced by its environment
+        default; validates the metric and the radix."""
+        vw, vm, vr = (self.viterbi_window, self.viterbi_metric,
+                      self.viterbi_radix)
+        if vm is not None and vm not in VITERBI_METRICS:
+            raise ValueError(
+                f"viterbi_metric {vm!r} is not one of {VITERBI_METRICS}")
+        if vr is not None and int(vr) not in VITERBI_RADIXES:
+            raise ValueError(
+                f"viterbi_radix {vr!r} is not one of {VITERBI_RADIXES}")
+        return dataclasses.replace(
+            self,
+            viterbi_window=env_viterbi_window() if vw is None else int(vw),
+            viterbi_metric=env_viterbi_metric() if vm is None else vm,
+            viterbi_radix=env_viterbi_radix() if vr is None else int(vr),
+            fused_demap=(env_fused_demap() if self.fused_demap is None
+                         else bool(self.fused_demap)),
+            sco_track=(env_sco_track() if self.sco_track is None
+                       else bool(self.sco_track)))
+
+    def replace(self, **changes: Any) -> "Geometry":
+        return dataclasses.replace(self, **changes)
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.as_dict(), sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Geometry":
+        """Strict inverse of :meth:`as_dict`: unknown keys raise."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise ValueError(
+                f"unknown Geometry field(s): {', '.join(unknown)}")
+        return cls(**d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Geometry":
+        return cls.from_dict(json.loads(s))
+
+
+#: the shared default instance
+DEFAULT = Geometry()
