@@ -87,7 +87,45 @@ Phases, each printing one JSON line:
    and frames/s of each stream, mean CUDA-event ms of a chunk scan and
    of a decode, chunks, decode dispatches, chunks in flight, peak
    device memory;
-6. timing: ``receive_many`` in every decode mode, the modes in turns
+6. fleet: the S-stream fleet (``MultiStreamReceiver`` at
+   ``Geometry().n_streams`` = 8 streams, each stream's slab of 50,000
+   samples pushed together, then flushed): ``fleet_default`` at
+   ``Geometry()``'s defaults, six streams of 32 frames of 20 symbols
+   (each starting at a different rate), an all-noise stream and a
+   stream shorter than a chunk; ``fleet_wide`` at ``stream_wide``'s
+   geometry, eight streams of 16 frames of 1000-byte PSDUs, in the
+   default mode and with ``fused_demap=True``. Each run with the
+   launch counts zeroed just before it and read just after: every
+   true frame right, once, at its true start; each stream equal to a
+   lone ``StreamReceiver`` on it; one scan a chunk-step and at most
+   one decode; ACS (fused) and traceback launches equal to the decode
+   dispatches; nothing degraded, no containment counter moved; the
+   kernels at the first fleet decode's inputs (64 lanes) bitwise equal
+   to their plain versions as in phase 5, and the decode's fronts
+   giving each lane the same bits in the 64-lane batch as in its
+   stream's 8. Then the wide fleet checkpointed half way
+   (``checkpoint_fleet``), every lane restored into a fresh fleet,
+   equal to the uninterrupted run. Times: aggregate and per-stream
+   samples/s, CUDA-event ms of a chunk-step's scan and of a decode,
+   chunk-steps, active lanes and steps in flight, peak device memory;
+7. serve: ``ServeRuntime(ServeConfig(check_fcs=True))`` (8 lanes at
+   ``Geometry()``): 24 clients of 8 frames each in ragged slabs of
+   1,000-20,000 samples through ``run_clients``, 16 of them queued at
+   first; one client's middle slab NaN in every 7th sample, one client
+   evicted once half its stream is in its lane and reconnected with its
+   blob. Every healthy session equal to a lone ``StreamReceiver`` and
+   right; the NaN session quarantined (only its quarantine counters
+   move), equal to a lone sanitizing ``StreamReceiver`` fed the slabs
+   its lane got and emitting only frames of its clean stream;
+   ``stats()`` balanced; at most two dispatches a chunk-step and two
+   chunk-steps a tick; ``scrape()`` with
+   ``serve.chunk_seconds``. Then the same clients with a snapshot every
+   4 chunk-steps, the runtime dropped without a drain once half the
+   frames were delivered, ``ServeRuntime.recover`` and the clients
+   resubmitting from ``acked``: the emissions, deduplicated by start,
+   equal the first run's (the NaN session's again only frames of its
+   lone receiver);
+8. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -147,6 +185,19 @@ STREAM_WIDE = {"chunk_len": 131072, "frame_len": 32768,
 STREAM_CFO = 0.004               # rad/sample
 STREAM_DELAY = 60
 STREAM_IDENTITY_PER_RATE = 2     # fused wide frames held to rx.receive
+# the fleet phase: Geometry().n_streams streams through one
+# MultiStreamReceiver, pushed STREAM_SLAB samples a stream at a time
+FLEET_DEFAULT_STREAMS = 6        # 32 frames of 20 symbols each, + 2 odd
+FLEET_DEFAULT_FRAMES = 32
+FLEET_WIDE_FRAMES = 16           # 1000-byte PSDUs, 8 streams
+# the serve phase: ServeRuntime at its default config (8 lanes,
+# Geometry() defaults), SERVE_SESSIONS clients of SERVE_FRAMES frames
+# in ragged slabs of SERVE_SLAB samples; one sends a NaN slab, one is
+# evicted half way and reconnected with its blob
+SERVE_SESSIONS = 24
+SERVE_FRAMES = 8
+SERVE_SLAB = (1_000, 20_000)
+SERVE_NAN, SERVE_EVICT = 5, 2    # the sessions s5 and s2
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -796,6 +847,474 @@ def same_result(a, b) -> bool:
             and np.array_equal(a.psdu_bits, b.psdu_bits))
 
 
+def push_fleet(msr, streams, lo: int, hi: int):
+    """push_many each stream's [a, a + STREAM_SLAB) for a in [lo, hi)."""
+    out = []
+    for a in range(lo, hi, STREAM_SLAB):
+        out += msr.push_many([x[a:min(a + STREAM_SLAB, hi)]
+                              for x in streams])
+    return out
+
+
+def by_stream(pairs, n):
+    out = [[] for _ in range(n)]
+    for i, f in pairs:
+        out[i].append(f)
+    return out
+
+
+def right(frames, starts, truth) -> bool:
+    """Every true frame emitted once, at its true start, right."""
+    return ([f.start for f in frames] == [int(s) for s in starts]
+            and all(f.result.ok and f.result.rate_mbps == m
+                    and f.result.length_bytes == n and f.result.crc_ok is True
+                    and np.array_equal(f.result.psdu_bits, bits)
+                    for f, (m, n, bits) in zip(frames, truth)))
+
+
+def lone_frames(framebatch, dev, stream, **geo):
+    """A lone StreamReceiver on `stream`, pushed in STREAM_SLAB slabs."""
+    sr = framebatch.StreamReceiver(check_fcs=True, device=dev, **geo)
+    return push_slabs(sr, stream, 0, stream.shape[0]) + sr.flush()
+
+
+def same_frames(a, b) -> bool:
+    return ([f.start for f in a] == [f.start for f in b]
+            and all(same_result(x.result, y.result) for x, y in zip(a, b)))
+
+
+def fleet_streams(rng, dev, wide: bool):
+    """The fleet's 8 streams, each (samples, true starts, truth), every
+    stream starting at a different rate, one CFO each. Wide: 16 frames
+    of 1000-byte PSDUs a stream, one to a 32,768-sample window. Default:
+    6 streams of 32 frames of 20 symbols, an all-noise stream, and a
+    one-frame stream shorter than a chunk."""
+    from ziria_tpu_torch.phy.wifi.params import RATE_MBPS_ORDER, RATES
+
+    out = []
+    if wide:
+        wl = STREAM_WIDE["frame_len"]
+        for i in range(8):
+            rates = [RATE_MBPS_ORDER[(i + j) % 8]
+                     for j in range(FLEET_WIDE_FRAMES)]
+            out.append(make_stream(
+                rng, dev, rates, [PSDU_BYTES] * len(rates),
+                lambda j, n: wl - n + int(rng.integers(300, 600)),
+                STREAM_CFO * (i - 3.5) / 4, wl))
+        return out
+    nbytes = {m: longest_psdu(RATES[m], STREAM_DEFAULT_SYMBOLS)
+              for m in RATE_MBPS_ORDER}
+    for i in range(FLEET_DEFAULT_STREAMS):
+        rates = [RATE_MBPS_ORDER[(i + j) % 8]
+                 for j in range(FLEET_DEFAULT_FRAMES)]
+        out.append(make_stream(rng, dev, rates, [nbytes[m] for m in rates],
+                               lambda j, n: int(rng.integers(300, 600)),
+                               STREAM_CFO * (i - 3.5) / 4, 2048))
+    noise = rng.normal(scale=0.05, size=(len(out[0][0]), 2))
+    out.append((noise.astype(np.float32), np.zeros(0, np.int64), []))
+    short = make_stream(rng, dev, [54], [nbytes[54]],
+                        lambda j, n: 300, -STREAM_CFO, 2048)
+    check(short[0].shape[0] < 8192, "the short stream is a chunk long")
+    out.append(short)
+    return out
+
+
+def batch_check(torch, rx, cplx, name, args):
+    """Hold the decode's fronts to give each lane the same values,
+    bitwise, in the fleet's (S*K)-lane batch as in its stream's own
+    K-lane batch, from the fleet decode's first inputs (`args`: segs,
+    rows, ridx, nbits, npsdu, n_sym_bucket): the fleet equals S lone
+    receivers only if no lane's soft values depend on the batch."""
+    segs, rows, ridx, nbits, _npsdu, nsb = args[:6]
+    s, k = rows.shape
+    lane = torch.arange(s, device=segs.device).repeat_interleave(k)
+    sel = segs[lane, torch.from_numpy(rows.reshape(-1)).to(segs.device)]
+    out = {"lanes": s * k}
+    with cplx.exact_fp32():
+        fronts = {
+            "mixed_front": lambda lo, hi: rx.mixed_front(
+                sel[lo:hi], ridx.reshape(-1)[lo:hi],
+                nbits.reshape(-1)[lo:hi], nsb),
+            "front_symbols": lambda lo, hi: rx._front_symbols(
+                sel[lo:hi], nsb)[0]}
+        for front, fn in fronts.items():
+            full = fn(0, s * k)
+            each = torch.cat([fn(i * k, (i + 1) * k) for i in range(s)])
+            diff = float((full - each).abs().max())
+            check(torch.equal(full, each),
+                  f"{name}: {front} of a lane differs between the "
+                  f"{s * k}-lane batch and its stream's {k} (max {diff})")
+            out[front] = {"bitwise_equal": True, "max_abs_diff": diff}
+    return out
+
+
+def fleet_phase(rng, dev, card):
+    """The S-stream fleet on the card (the docstring's phase 6):
+    fleet_default, fleet_wide in the default and fused modes, and a
+    fleet checkpoint half way through fleet_wide. Returns (the phase's
+    JSON object, each run's launches, each run's kernel checks)."""
+    import torch
+
+    from ziria_tpu_torch.backend import framebatch
+    from ziria_tpu_torch.ops import cplx, viterbi_cuda as vc, \
+        viterbi_fused as vf
+    from ziria_tpu_torch.phy.wifi import rx
+    from ziria_tpu_torch.utils import dispatch, telemetry
+
+    streams = {"fleet_default": (fleet_streams(rng, dev, False), {}),
+               "fleet_wide": (fleet_streams(rng, dev, True), STREAM_WIDE)}
+    runs = {"fleet_default": ("fleet_default", {}),
+            "fleet_wide": ("fleet_wide", {}),
+            "fleet_wide_fused": ("fleet_wide", {"fused_demap": True})}
+    out, launches_of, checks_of, frames_of = {}, {}, {}, {}
+    for name, (src, knobs) in runs.items():
+        made, geo = streams[src]
+        xs = [x for x, _s, _t in made]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vc.reset_launches()
+        vf.reset_launches()
+        fused = bool(knobs.get("fused_demap"))
+        tap = KernelTap([(vc, "traceback"), (rx, "stream_decode_multi_graph"),
+                         (vf, "fused_acs_mixed") if fused else (vc, "acs")])
+        with dispatch.count_dispatches() as d, telemetry.collect() as reg, \
+                StepTimer(rx, ("multi_stream_chunk_graph",
+                               "stream_decode_multi_graph")) as steps, tap:
+            t0 = time.perf_counter()
+            msr = framebatch.MultiStreamReceiver(check_fcs=True, device=dev,
+                                                 **geo, **knobs)
+            got = push_fleet(msr, xs, 0, max(x.shape[0] for x in xs)) \
+                + msr.flush()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+        st = msr.stats
+        per = by_stream(got, msr.s)
+        steps_n = d.counts.get("rx.stream_chunk_multi", 0)
+        decodes = d.counts.get("rx.stream_decode_multi", 0)
+        contained = {k: v for k, v in reg.counters().items()
+                     if k.startswith("resilience.")}
+        step_ms = steps.mean_ms()
+        n_samples = sum(x.shape[0] for x in xs)
+        out[name] = {
+            "geometry": {"streams": msr.s, "chunk_len": msr.chunk_len,
+                         "frame_len": msr.frame_len, "k": msr.k,
+                         "n_sym_bucket": msr.n_sym_bucket},
+            "knobs": knobs, "samples": n_samples,
+            "stream_samples": [int(x.shape[0]) for x in xs],
+            "frames_sent": sum(len(t) for _x, _s, t in made),
+            "frames_emitted": len(got), "ms": ms,
+            "samples_per_s": n_samples / ms * 1e3,
+            "samples_per_s_per_stream": [x.shape[0] / ms * 1e3 for x in xs],
+            "air_rate_share": n_samples / ms * 1e3 / (msr.s * 20e6),
+            "frames_per_s": len(got) / ms * 1e3,
+            "chunk_steps": st.chunk_steps, "decode_dispatches": decodes,
+            "scan_ms_per_chunk_step": step_ms["multi_stream_chunk_graph"],
+            "decode_ms_per_dispatch": step_ms["stream_decode_multi_graph"],
+            "max_active_streams": st.max_active_streams,
+            "max_in_flight": st.max_in_flight,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+            "launches": launches, "stats": st._asdict(),
+            "containment_counters": contained, "card": card}
+        for i, (x, starts, truth) in enumerate(made):
+            check(right(per[i], starts, truth),
+                  f"{name}: stream {i} decoded wrongly")
+        check(steps_n == st.chunk_steps and decodes <= steps_n
+              and set(d.counts) <= {"rx.stream_chunk_multi",
+                                    "rx.stream_decode_multi"},
+              f"{name}: dispatches {dict(d.counts)}, {st.chunk_steps} steps")
+        check(st.overflow_chunks == 0 and not st.degraded
+              and st.lane_blowups == 0 and st.quarantines == 0
+              and st.sanitized == 0, f"{name}: containment ran: {st}")
+        check(not any(contained.values()),
+              f"{name}: containment counters moved: {contained}")
+        acs_key = "fused_mixed" if fused else "acs"
+        want = {k: 0 for k in launches}
+        want.update({acs_key: decodes, "traceback": decodes})
+        check(decodes > 0 and launches == want,
+              f"{name}: launches {launches}, want {want}")
+        launches_of[name] = launches
+        frames_of[name] = per
+        # after the counts are read: these launches compare and count
+        # nowhere
+        for i, x in enumerate(xs):
+            check(same_frames(per[i], lone_frames(framebatch, dev, x, **geo,
+                                                  **knobs)),
+                  f"{name}: stream {i} differs from a lone StreamReceiver")
+        out[name]["equal_to_lone_receivers"] = True
+        checks_of[name] = out[name]["kernels"] = stream_kernel_checks(
+            torch, name, tap, fused)
+        out[name]["batch_independence"] = batch_check(
+            torch, rx, cplx, name, tap.args["stream_decode_multi_graph"][0])
+        del tap
+
+    # the wide fleet again, checkpointed half way (every lane) and
+    # restored into a fresh fleet
+    made, geo = streams["fleet_wide"]
+    xs = [x for x, _s, _t in made]
+    longest = max(x.shape[0] for x in xs)
+    half = longest // STREAM_SLAB // 2 * STREAM_SLAB
+    msr = framebatch.MultiStreamReceiver(check_fcs=True, device=dev, **geo)
+    got = push_fleet(msr, xs, 0, half)
+    blobs, drained = msr.checkpoint_fleet()
+    msr = framebatch.MultiStreamReceiver(check_fcs=True, device=dev, **geo)
+    for i, blob in blobs.items():
+        msr.restore_stream(i, blob)
+    got += drained + push_fleet(msr, xs, half, longest) + msr.flush()
+    resumed = by_stream(got, msr.s)
+    check(all(same_frames(a, b)
+              for a, b in zip(resumed, frames_of["fleet_wide"])),
+          "fleet checkpoint: the resumed fleet differs from the "
+          "uninterrupted one")
+    return ({"phase": "fleet", "card": card, "runs": out,
+             "checkpoint_resume": {"split_at_sample": half,
+                                   "lanes": len(blobs),
+                                   "frames": len(got), "equal": True}},
+            launches_of, checks_of)
+
+
+def serve_clients(rng, dev, serve):
+    """SERVE_SESSIONS clients: SERVE_FRAMES frames of 20 symbols each
+    (the 8 rates in turn from a different one per client), in ragged
+    slabs of SERVE_SLAB samples, one slab a tick; client SERVE_NAN's
+    middle slab NaN in every 7th sample. Returns (clients, truth)."""
+    from ziria_tpu_torch.phy.wifi.params import RATE_MBPS_ORDER, RATES
+
+    nbytes = {m: longest_psdu(RATES[m], STREAM_DEFAULT_SYMBOLS)
+              for m in RATE_MBPS_ORDER}
+    clients, truth = [], {}
+    for c in range(SERVE_SESSIONS):
+        rates = [RATE_MBPS_ORDER[(c + j) % 8] for j in range(SERVE_FRAMES)]
+        x, starts, tr = make_stream(
+            rng, dev, rates, [nbytes[m] for m in rates],
+            lambda j, n: int(rng.integers(300, 600)),
+            STREAM_CFO * ((c % 8) - 3.5) / 4, 2048)
+        cuts = [0]
+        while cuts[-1] < x.shape[0]:
+            cuts.append(min(x.shape[0], cuts[-1]
+                            + int(rng.integers(*SERVE_SLAB))))
+        sched = [(t, x[a:b]) for t, (a, b) in enumerate(zip(cuts, cuts[1:]))]
+        mode = "ok"
+        if c == SERVE_NAN:
+            t, bad = sched[len(sched) // 2]
+            bad = np.array(bad, copy=True)
+            bad[::7] = np.nan
+            sched[len(sched) // 2] = (t, bad)
+            mode = "nan"
+        sid = f"s{c}"
+        clients.append(serve.ClientSpec(sid, sched, x, None, mode))
+        truth[sid] = (starts, tr)
+    return clients, truth
+
+
+def serve_phase(rng, dev, card):
+    """The serving runtime on the card (the docstring's phase 7): a run
+    with a NaN client and an evicted client, then a run dropped half
+    way and recovered from its snapshots. Returns (the phase's JSON
+    object, the first run's launches)."""
+    import tempfile
+
+    import torch
+
+    from ziria_tpu_torch.backend import framebatch
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.runtime import serve
+    from ziria_tpu_torch.utils import dispatch
+
+    clients, truth = serve_clients(rng, dev, serve)
+    nan_sid, evict_sid = f"s{SERVE_NAN}", f"s{SERVE_EVICT}"
+    lone = {c.sid: lone_frames(framebatch, dev, c.stream) for c in clients}
+    half = {c.sid: c.stream.shape[0] // 2 for c in clients}
+    ticks, nan_takes = [], []
+
+    class Evicting(serve.ServeRuntime):
+        """Evicts one session once half its stream is in its lane, and
+        reconnects it with its blob (to the queue, when sessions wait),
+        its staged slabs resubmitted."""
+        evicted = None
+
+        def _push(self, push):
+            # what reaches the NaN session's lane, slab for slab
+            for lane, take in push.items():
+                if self._lane_sid.get(lane) == nan_sid:
+                    nan_takes.append(np.array(take, copy=True))
+            return super()._push(push)
+
+        def step(self):
+            with dispatch.count_dispatches() as d:
+                out = super().step()
+            ticks.append((d.counts.get("rx.stream_chunk_multi", 0),
+                          d.counts.get("rx.stream_decode_multi", 0)))
+            s = self._sessions.get(evict_sid)
+            if self.evicted is not None or s is None or s.lane is None:
+                return out
+            c = self._rx.carry(s.lane)
+            if c.offset + c.tail.shape[0] >= half[evict_sid]:
+                blob, ems, staged = self.evict(evict_sid)
+                r = self.connect(evict_sid, checkpoint=blob)
+                check(r.admitted or r.queued, f"serve: reconnect {r}")
+                for slab in staged:
+                    check(self.submit(evict_sid, slab).accepted,
+                          "serve: resubmit after the eviction")
+                self.evicted = len(ticks)
+                out += ems
+            return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    vc.reset_launches()
+    vf.reset_launches()
+    cfg = serve.ServeConfig(check_fcs=True)
+    with dispatch.count_dispatches() as d:
+        t0 = time.perf_counter()
+        with Evicting(cfg, device=dev) as srv:
+            frames = serve.run_clients(srv, clients)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+    st = srv.stats()
+    decodes = d.counts.get("rx.stream_decode_multi", 0)
+    lat = srv.registry.find("serve.chunk_seconds")
+    counters = srv.registry.counters()
+    contained = {k: v for k, v in counters.items()
+                 if k.startswith("resilience.")}
+    n_samples = sum(c.stream.shape[0] for c in clients)
+    n_frames = sum(len(v) for v in frames.values())
+    # the NaN session: exactly a lone sanitizing receiver's frames on
+    # the slabs its lane got, and only frames of its clean stream
+    sr = framebatch.StreamReceiver(check_fcs=True, sanitize=True,
+                                   device=dev)
+    nan_lone = [f for t in nan_takes for f in sr.push(t)] + sr.flush()
+    check(sr.stats.quarantines >= 1
+          and same_frames(frames[nan_sid], nan_lone),
+          "serve: the NaN session differs from a lone sanitizing "
+          "StreamReceiver on its slabs")
+    by = {f.start: f for f in lone[nan_sid]}
+    check(all(f.start in by and same_frames([f], [by[f.start]])
+              for f in frames[nan_sid]),
+          "serve: the NaN session emitted a frame its clean stream "
+          "does not have")
+    for c in clients:
+        starts, tr = truth[c.sid]
+        if c.sid == nan_sid:
+            continue
+        check(right(frames[c.sid], starts, tr),
+              f"serve: session {c.sid} decoded wrongly")
+        check(same_frames(frames[c.sid], lone[c.sid]),
+              f"serve: session {c.sid} differs from a lone StreamReceiver")
+    check(srv.evicted is not None, "serve: the eviction never happened")
+    check(st.admitted == st.closed + st.shed + st.evicted
+          + st.active_sessions and st.evicted == st.restored == 1
+          and st.closed == SERVE_SESSIONS and st.shed == 0
+          and st.frames == n_frames, f"serve: stats do not balance: {st}")
+    check(d.total <= 2 * st.chunk_steps
+          and set(d.counts) <= {"rx.stream_chunk_multi",
+                                "rx.stream_decode_multi"},
+          f"serve: dispatches {dict(d.counts)}, {st.chunk_steps} steps")
+    # a tick moves up to one chunk of staging into each lane, whose
+    # carried tail is under a chunk: at most two chunk-steps a tick, and
+    # at most one decode per chunk-step (the previous step's drain)
+    check(all(dec <= cs <= 2 for cs, dec in ticks),
+          f"serve: a tick's (chunk-steps, decodes) over the bound: "
+          f"{[t for t in ticks if not t[1] <= t[0] <= 2]}")
+    check(counters.get("resilience.quarantines") == 1
+          and set(contained) <= {"resilience.quarantines",
+                                 "resilience.sanitized"},
+          f"serve: containment {contained}")
+    check(launches == {k: {"acs": decodes, "traceback": decodes}.get(k, 0)
+                       for k in launches} and decodes > 0,
+          f"serve: launches {launches}")
+    page = srv.scrape()
+    check(lat is not None and lat.count == st.chunk_steps
+          and "serve_chunk_seconds_bucket" in page,
+          "serve: no serve.chunk_seconds in the scrape")
+    chunk_ms = lat.summary(scale=1e3)
+
+    # the same clients again, snapshotting every 4 chunk-steps, the
+    # runtime dropped half way without a drain, then recovered
+    class Crash(Exception):
+        pass
+
+    delivered = []
+
+    class Crashing(serve.ServeRuntime):
+        """Dropped (Crash) at the first step after half the frames were
+        delivered; records what it delivered."""
+
+        def step(self):
+            out = super().step()
+            delivered.extend(out)
+            if len(delivered) >= n_frames // 2:
+                raise Crash()
+            return out
+
+        def close(self, sid):
+            out = super().close(sid)
+            delivered.extend(out)
+            return out
+
+    with tempfile.TemporaryDirectory() as snap_dir:
+        cfg2 = cfg._replace(snapshot_dir=snap_dir, snapshot_every=4)
+        crashed = Crashing(cfg2, device=dev)
+        with crashed:
+            try:
+                serve.run_clients(crashed, clients)
+            except Crash:
+                pass
+            crashed._drained = True          # dropped: no drain
+        snaps = crashed.stats().snapshots
+        rec = serve.ServeRuntime.recover(snap_dir, device=dev)
+        left = [c for c in clients if c.sid not in rec._gone]
+        with rec:
+            again = serve.run_clients(rec, left)
+        rst = rec.stats()
+    merged, dups = {c.sid: {} for c in clients}, 0
+    for sid, f in delivered + [(s, f) for s, fs in again.items() for f in fs]:
+        have = merged[sid].get(f.start)
+        if have is not None:
+            check(same_frames([f], [have]),
+                  f"recover: {sid} re-delivered a different frame")
+            dups += 1
+        merged[sid][f.start] = f
+    for c in clients:
+        got = [merged[c.sid][k] for k in sorted(merged[c.sid])]
+        if c.sid == nan_sid:
+            by = {f.start: f for f in lone[c.sid]}
+            check(all(f.start in by and same_frames([f], [by[f.start]])
+                      for f in got), "recover: the NaN session")
+            continue
+        check(same_frames(got, frames[c.sid]),
+              f"recover: session {c.sid} differs from the uncrashed run")
+    check(snaps >= 1 and rst.restarts == 1,
+          f"recover: snapshots {snaps}, restarts {rst.restarts}")
+    return ({"phase": "serve", "card": card, "config": cfg._asdict(),
+             "sessions": SERVE_SESSIONS, "frames_per_session": SERVE_FRAMES,
+             "admitted": st.admitted, "queued": st.queued,
+             "rejected_admissions": st.rejected_admissions,
+             "rejected_slabs": st.rejected_slabs, "shed": st.shed,
+             "evicted": st.evicted, "restored": st.restored,
+             "closed": st.closed, "quarantined_session": nan_sid,
+             "evicted_at_tick": srv.evicted, "frames": n_frames,
+             "chunk_steps": st.chunk_steps, "decode_dispatches": decodes,
+             "max_chunk_steps_per_tick": max(cs for cs, _d in ticks),
+             "max_dispatches_per_tick": max(cs + dec for cs, dec in ticks),
+             "nan_session_frames": len(frames[nan_sid]), "ms": ms,
+             "frames_per_s": n_frames / ms * 1e3,
+             "samples_per_s": n_samples / ms * 1e3,
+             "chunk_step_ms": chunk_ms,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+             "launches": launches, "containment_counters": contained,
+             "equal_to_lone_receivers": True,
+             "recovery": {"snapshots": snaps,
+                          "delivered_before": len(delivered),
+                          "duplicates": dups,
+                          "recovered_sessions": len(rec.recovered),
+                          "replayed": len(rec.replayed),
+                          "deduped": rst.deduped,
+                          "equal_to_uncrashed": True}},
+            launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1037,7 +1556,13 @@ def main(argv=None) -> int:
         rng, dev, caps, sent, rates, card)
     emit(stream_line)
 
-    # ---- 6. timing
+    # ---- 6. the S-stream fleet, 7. the serving runtime
+    fleet_line, fleet_launches, fleet_checks = fleet_phase(rng, dev, card)
+    emit(fleet_line)
+    serve_line, fleet_launches["serve"] = serve_phase(rng, dev, card)
+    emit(serve_line)
+
+    # ---- 8. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -1319,6 +1844,10 @@ def main(argv=None) -> int:
                                 for sn, sl in stream_launches.items()},
             "stream_shapes": {sn: sc[name] for sn, sc in stream_checks.items()
                               if name in sc},
+            "fleet_launches": {fn: fl[name]
+                               for fn, fl in fleet_launches.items()},
+            "fleet_shapes": {fn: fc[name] for fn, fc in fleet_checks.items()
+                             if name in fc},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

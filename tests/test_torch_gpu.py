@@ -408,3 +408,112 @@ def test_stream_default_on_card_equals_cpu(cuda):
             (w.ok, w.rate_mbps, w.length_bytes, w.crc_ok) == (True, m, n, True)
         np.testing.assert_array_equal(g.psdu_bits, w.psdu_bits)
         np.testing.assert_array_equal(g.psdu_bits, bits)
+
+
+FLEET_GEO = dict(chunk_len=4096, frame_len=1024, max_frames_per_chunk=8,
+                 check_fcs=True)
+
+
+def _fleet_streams(n=8, seed=12):
+    """n streams of 2-4 16-byte frames at rotating rates, and one
+    all-noise stream in place of the last."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n - 1):
+        rates = [params.RATE_MBPS_ORDER[(i + j) % 8] for j in range(2 + i % 3)]
+        x, _st, _t = make_stream(rng, "cpu", rates, [16] * len(rates),
+                                 lambda j, m: int(rng.integers(300, 2600)),
+                                 1e-4 * i, 1024)
+        out.append(x)
+    out.append(rng.normal(scale=0.05, size=(6000, 2)).astype(np.float32))
+    return out
+
+
+def _fleet_run(streams, dev, **kw):
+    msr = framebatch.MultiStreamReceiver(len(streams), **FLEET_GEO,
+                                         device=dev, **kw)
+    got = []
+    for lo in range(0, max(x.shape[0] for x in streams), 1500):
+        got += msr.push_many([x[lo:lo + 1500] for x in streams])
+    got += msr.flush()
+    per = [[] for _ in streams]
+    for i, f in got:
+        per[i].append(f)
+    return per, msr
+
+
+def _same_stream_frames(got, want):
+    assert [f.start for f in got] == [f.start for f in want]
+    for g, w in zip(got, want):
+        g, w = g.result, w.result
+        assert (g.ok, g.rate_mbps, g.length_bytes, g.crc_ok) == \
+            (w.ok, w.rate_mbps, w.length_bytes, w.crc_ok)
+        np.testing.assert_array_equal(g.psdu_bits, w.psdu_bits)
+
+
+def test_fleet_on_card_equals_cpu_and_lone_receivers(cuda):
+    streams = _fleet_streams()
+    vc.reset_launches()
+    with dispatch.count_dispatches() as d:
+        per, msr = _fleet_run(streams, cuda)
+    decodes = d.counts["rx.stream_decode_multi"]
+    assert vc.LAUNCHES == _only(vc, acs=decodes, traceback=decodes)
+    assert d.counts["rx.stream_chunk_multi"] == msr.stats.chunk_steps
+    want, cpu = _fleet_run(streams, "cpu")
+    assert msr.stats == cpu.stats and not msr.stats.degraded
+    for i, x in enumerate(streams):
+        _same_stream_frames(per[i], want[i])
+        lone, _st = framebatch.receive_stream(x, **FLEET_GEO, device=cuda)
+        _same_stream_frames(per[i], lone)
+    assert sum(len(p) for p in per) >= 14 and per[-1] == []
+
+
+@pytest.mark.parametrize("site", ["decode", "scan"])
+def test_fleet_on_card_degrades_only_for_an_injected_fault(cuda, site,
+                                                           monkeypatch):
+    from ziria_tpu_torch.utils import faults
+    streams = _fleet_streams(4, seed=13)
+    want, _m = _fleet_run(streams, cuda)
+    label = "rx.stream_decode_multi" if site == "decode" \
+        else "rx.stream_chunk_multi"
+    with faults.inject(faults.FaultSpec(label, "fatal", calls=(1,))):
+        per, msr = _fleet_run(streams, cuda)
+    assert msr._strict and msr.stats.degraded
+    for g, w in zip(per, want):
+        _same_stream_frames(g, w)
+    msr = framebatch.MultiStreamReceiver(4, **FLEET_GEO, device=cuda)
+
+    def boom(*_a, **_k):
+        raise RuntimeError("a real device failure")
+    monkeypatch.setattr(msr, "_decode" if site == "decode" else "_scan",
+                        boom)
+    with pytest.raises(RuntimeError, match="real device failure"):
+        for lo in range(0, 12000, 1500):
+            msr.push_many([x[lo:lo + 1500] for x in streams])
+        msr.flush()
+    assert not msr.stats.degraded
+
+
+def test_fleet_watchdog_launches_on_the_callers_thread(cuda, monkeypatch):
+    import threading
+
+    from ziria_tpu_torch.utils import faults
+    streams = _fleet_streams(4, seed=14)
+    want, _m = _fleet_run(streams, cuda)
+    seen = set()
+    for mod, name in ((vc, "_acs"), (vc, "traceback")):
+        fn = getattr(mod, name)
+
+        def tapped(*a, fn=fn, **k):
+            seen.add(threading.get_ident())
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, name, tapped)
+    with faults.inject(faults.FaultSpec("rx.stream_*_multi", "hang",
+                                        every=2, delay_s=0.5)) as p:
+        per, msr = _fleet_run(streams, cuda, watchdog_s=0.1)
+    assert len(p.fired) >= 2 and not msr.stats.degraded
+    assert seen == {threading.get_ident()}
+    assert threading.active_count() == 1 or all(
+        not t.name.startswith("ziria") for t in threading.enumerate())
+    for g, w in zip(per, want):
+        _same_stream_frames(g, w)

@@ -103,6 +103,36 @@ def test_dft_pair(inverse):
           jcplx.dft_pair(x, inverse=inverse))
 
 
+@pytest.mark.parametrize("front", ["dft", "idft", "mixed_front",
+                                   "front_symbols"])
+def test_lane_values_do_not_depend_on_the_batch(front):
+    # a fleet decodes S*K lanes in one batch where a lone receiver
+    # decodes its own K: each lane's soft values must be the same bits
+    # in both (the DFT matmul runs in fixed row blocks)
+    from ziria_tpu_torch.phy.wifi import rx
+    rng = np.random.default_rng(4)
+    s, k, nsb = 8, 8, 32
+    if front in ("dft", "idft"):
+        x = t(pairs(rng, s * k, 64))
+
+        def fn(lo, hi):
+            return cplx.dft_pair(x[lo:hi], inverse=front == "idft")
+    else:
+        x = t(pairs(rng, s * k, rx.FRAME_DATA_START + 80 * nsb))
+        ridx = rng.integers(0, 8, s * k)
+        nbits = rng.integers(24, nsb * 216, s * k)
+
+        def fn(lo, hi):
+            if front == "mixed_front":
+                return rx.mixed_front(x[lo:hi], ridx[lo:hi], nbits[lo:hi],
+                                      nsb)
+            return rx._front_symbols(x[lo:hi], nsb)[0]
+    full = fn(0, s * k)
+    for size in (k, 1):
+        each = torch.cat([fn(i, i + size) for i in range(0, s * k, size)])
+        assert torch.equal(full, each), size
+
+
 def test_ofdm_ops():
     rng = np.random.default_rng(3)
     syms = pairs(rng, 2, 5, 48)

@@ -95,16 +95,35 @@ def _dft_mats_t(n: int, inverse: bool, device: torch.device):
             torch.from_numpy(np.ascontiguousarray(s.T)).to(device))
 
 
+#: rows of each DFT matmul, by device type. Every product runs at this
+#: one shape (the rows zero-padded to whole blocks), so each row is
+#: summed in one order whatever the rows around it: a BLAS picks its
+#: kernel by the row count (MKL's one-row path, cuBLAS's tiles and
+#: split-K), and a fleet lane's soft values would otherwise differ in the
+#: last bits from its lone receiver's.
+DFT_BLOCK_ROWS = {"cpu": 64, "cuda": 16384}
+
+
 def dft_pair(p, inverse: bool = False):
     """DFT along the axis right before the re/im axis of a pair tensor.
-    numpy-fft convention: forward unscaled, inverse scaled by 1/n."""
+    numpy-fft convention: forward unscaled, inverse scaled by 1/n. A
+    row's values do not depend on the batch (:data:`DFT_BLOCK_ROWS`)."""
     n = p.shape[-2]
     ct, st = _dft_mats_t(n, inverse, p.device)
-    xr, xi = p[..., 0], p[..., 1]
-    # W = C + iS; y = W x
-    yr = xr @ ct - xi @ st
-    yi = xr @ st + xi @ ct
-    return torch.stack([yr, yi], dim=-1)
+    x = p.reshape(-1, n, 2)
+    m = x.shape[0]
+    blk = DFT_BLOCK_ROWS.get(p.device.type, DFT_BLOCK_ROWS["cpu"])
+    pad = -m % blk
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, n, 2))])
+    xr, xi = x[..., 0].contiguous(), x[..., 1].contiguous()
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    for lo in range(0, m + pad, blk):
+        a, b = xr[lo:lo + blk], xi[lo:lo + blk]
+        # W = C + iS; y = W x
+        torch.mm(a, ct, out=yr[lo:lo + blk]).sub_(b @ st)
+        torch.mm(a, st, out=yi[lo:lo + blk]).add_(b @ ct)
+    return torch.stack([yr[:m], yi[:m]], dim=-1).reshape(p.shape)
 
 
 def fft_pair(p):

@@ -738,3 +738,54 @@ def stream_decode_graph(segs, rows, ridx, nbits, npsdu, n_sym_bucket: int,
                               viterbi_radix, sco_track=sco_track,
                               fused_demap=fused_demap)
     return clear, crc_psdu_many_graph(clear, npsdu_t)
+
+
+# ---------------------------------------------------- S-stream fleet
+#
+# The device half of ``backend/framebatch.MultiStreamReceiver``: S
+# streams' chunks ride one scan on a leading stream axis, and every
+# stream's decodable lanes one flattened (S*K)-lane decode. Each lane's
+# values are those of the single-stream programs on that lane, so the
+# fleet emits what S lone receivers would.
+
+
+def multi_stream_chunk_graph(chunks, valid, own_lo, own_hi, k: int,
+                             win_len: int, n_sym_bucket: int,
+                             threshold: float = 0.75, min_run: int = 33,
+                             dead_zone: int = 320):
+    """The fleet's chunk scan (the reference's ``multi_stream_chunk_graph``
+    :1088): chunks (S, chunk_len, 2), per-stream (S,) valid, own_lo and
+    own_hi; an idle or quarantined lane rides ``valid == 0`` and finds
+    nothing. :func:`stream_chunk_graph` already takes the stream axis,
+    and lane i of the result is its S = 1 call on lane i."""
+    return stream_chunk_graph(chunks, valid, own_lo, own_hi, k, win_len,
+                              n_sym_bucket, threshold, min_run, dead_zone)
+
+
+def stream_decode_multi_graph(segs, rows, ridx, nbits, npsdu,
+                              n_sym_bucket: int, viterbi_window: int = None,
+                              viterbi_metric: str = None,
+                              viterbi_radix: int = None,
+                              sco_track: bool = False,
+                              fused_demap: bool = False):
+    """The fleet's decode (the body of the reference's
+    ``_jit_stream_decode_multi`` :1137): segs (S, K, need_b, 2) from the
+    scan; rows, ridx, nbits and npsdu (S, K) host ints, each stream's
+    decodable lanes first and zeros after (a zero-bit pad lane decodes
+    to erasures, and is discarded). Per-stream row select on the
+    device, one (S*K)-lane :func:`decode_data_mixed` and one masked CRC.
+    Returns (clear (S, K, n_sym_bucket * MAX_DBPS) uint8, crc (S, K)
+    bool) on segs' device, with no host read."""
+    s, kk = segs.shape[:2]
+    rows = np.asarray(rows, np.int64)
+    # both index tables in one upload, without a stream sync
+    idx = torch.from_numpy(np.stack(
+        [rows.reshape(-1), np.asarray(npsdu, np.int64).reshape(-1)])) \
+        .to(segs.device, non_blocking=True)
+    lane = torch.arange(s, device=segs.device).repeat_interleave(kk)
+    clear = decode_data_mixed(segs[lane, idx[0]], np.asarray(ridx).reshape(-1),
+                              np.asarray(nbits).reshape(-1), n_sym_bucket,
+                              viterbi_window, viterbi_metric, viterbi_radix,
+                              sco_track=sco_track, fused_demap=fused_demap)
+    crc = crc_psdu_many_graph(clear, idx[1])
+    return clear.reshape(s, kk, -1), crc.reshape(s, kk)

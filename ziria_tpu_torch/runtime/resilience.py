@@ -1,8 +1,9 @@
-"""Guarded dispatch and stream-carry checkpoints (counterpart of
-ziria_tpu/runtime/resilience.py: ``FaultPolicy``, ``env_max_retries``,
-``default_policy`` :123, ``classify_error``, ``backoff_delay``,
-``guarded`` :215, ``checkpoint_carry`` :306 and ``restore_carry``
-:340).
+"""Guarded dispatch, its watchdog, and stream-carry checkpoints
+(counterpart of ziria_tpu/runtime/resilience.py: ``FaultPolicy``,
+``env_max_retries``, ``default_policy`` :123, ``classify_error``,
+``backoff_delay``, the watchdog of ``_call_with_watchdog`` :183,
+``guarded`` :215 without its ``fallback``, ``checkpoint_carry`` :306
+and ``restore_carry`` :340).
 
 :func:`guarded` runs a call site behind the chaos seam
 (``faults.maybe_fail``) inside ``dispatch.timed``; transient failures
@@ -12,6 +13,16 @@ attempt); a fatal failure, or exhausted retries, raises
 context), so on the card a retry cannot heal it: there the receivers
 degrade only for an injected fault and re-raise any other (see
 ``framebatch._contained``).
+
+The watchdog (``FaultPolicy.timeout_s``) runs on the caller's thread:
+no second thread ever issues work, so none can go on launching on the
+shared CUDA context after its call was given up. An injected delay or
+hang longer than the timeout is cut at the timeout before the launch
+and raises :class:`InjectedTimeout`, a transient fault that retries as
+the reference's abandoned watchdog thread does. A real device that
+stops answering is caught where the host waits for it: the receivers
+poll the event of each host read against the timeout
+(``framebatch._await_device``) and raise :class:`DispatchTimeout`.
 
 :func:`checkpoint_carry` and :func:`restore_carry` keep the
 ``ziria-stream-carry-v1`` npz layout and its CRC32 integrity field, so
@@ -39,7 +50,12 @@ TRANSIENT_MARKERS = ("UNAVAILABLE", "RESOURCE_EXHAUSTED",
 
 
 class DispatchTimeout(TimeoutError):
-    """A guarded dispatch exceeded a deadline (transient)."""
+    """A guarded dispatch, or the host read of its results, exceeded
+    the watchdog timeout (transient)."""
+
+
+class InjectedTimeout(DispatchTimeout, faults.InjectedFault):
+    """The watchdog cut an injected delay or hang before the launch."""
 
 
 class DispatchFailed(RuntimeError):
@@ -57,12 +73,14 @@ class DispatchFailed(RuntimeError):
 
 
 class FaultPolicy(NamedTuple):
-    """Retry and backoff policy of a guarded site: attempt ``a`` backs
-    off ``min(base * 2**a, max) * (0.5 + 0.5 * u)``, u hashed from
-    (label, seed, a)."""
+    """Retry, backoff and watchdog policy of a guarded site: attempt
+    ``a`` backs off ``min(base * 2**a, max) * (0.5 + 0.5 * u)``, u
+    hashed from (label, seed, a); ``timeout_s`` (None: no watchdog)
+    bounds an injected stall of each attempt and each host read."""
     max_retries: int = 2
     backoff_base_s: float = 0.05
     backoff_max_s: float = 2.0
+    timeout_s: Optional[float] = None
     seed: int = 0
 
 
@@ -75,14 +93,19 @@ def env_max_retries() -> Optional[int]:
     return int(v)
 
 
-def default_policy() -> FaultPolicy:
-    """The policy of ZIRIA_MAX_RETRIES retries, else 2."""
-    max_retries = env_max_retries()
+def default_policy(max_retries: Optional[int] = None,
+                   timeout_s: Optional[float] = None,
+                   seed: int = 0) -> FaultPolicy:
+    """The site policy: an explicit ``max_retries`` wins, else
+    ZIRIA_MAX_RETRIES, else 2."""
+    if max_retries is None:
+        max_retries = env_max_retries()
     if max_retries is None:
         max_retries = FaultPolicy._field_defaults["max_retries"]
     if max_retries < 0:
         raise ValueError(f"max_retries {max_retries} must be >= 0")
-    return FaultPolicy(max_retries=int(max_retries))
+    return FaultPolicy(max_retries=int(max_retries), timeout_s=timeout_s,
+                       seed=seed)
 
 
 def classify_error(e: BaseException) -> str:
@@ -119,7 +142,10 @@ def guarded(label: str, fn: Callable, *args,
     for attempt in range(policy.max_retries + 1):
         try:
             with dispatch.timed(label):
-                faults.maybe_fail(label)
+                if faults.maybe_fail(label, policy.timeout_s):
+                    raise InjectedTimeout(
+                        f"DEADLINE_EXCEEDED: dispatch '{label}' exceeded "
+                        f"its {policy.timeout_s}s watchdog")
                 out = fn(*args)
             if attempt:
                 telemetry.count("resilience.recovered")

@@ -1,20 +1,25 @@
-"""Seeded, scoped fault injection at the receivers' seams (counterpart
-of ziria_tpu/utils/faults.py: ``FaultSpec``, ``FaultPlan``, ``inject``,
-``active``, ``maybe_fail`` and ``corrupt_slab`` with the ``nan_slab``
-and ``truncate`` kinds, and the injected error classes).
+"""Seeded, scoped fault injection at the receivers' and the server's
+seams (counterpart of ziria_tpu/utils/faults.py: ``FaultSpec``,
+``FaultPlan``, ``inject``, ``active``, ``maybe_fail``, ``corrupt_slab``
+with the ``nan_slab`` and ``truncate`` kinds, ``io_fault`` :336, and
+the injected error classes; the ``ZIRIA_CHAOS`` grammar waits for the
+CLI that reads it).
 
 :func:`inject` activates a :class:`FaultPlan` for a block. Every
 decision is deterministic by (site, seed, call index), computed as the
 reference computes it, so one plan hits the same calls in both
-packages. Two seams consume it: :func:`maybe_fail` just before a
-guarded dispatch fires (``transient``, ``fatal``, ``delay``, ``hang``)
-and :func:`corrupt_slab` on a pushed sample slab (``nan_slab``,
-``truncate``). When no plan is active each seam costs one truthiness
-check.
+packages. Three seams consume it: :func:`maybe_fail` just before a
+guarded dispatch fires (``transient``, ``fatal``, ``delay``, ``hang``),
+:func:`corrupt_slab` on a pushed sample slab (``nan_slab``,
+``truncate``) and :func:`io_fault` on every payload the durability
+layer writes (``io_torn``, ``io_enospc``). When no plan is active each
+seam costs one truthiness check. The ``channel`` kind is not ported:
+a plan naming it raises.
 """
 
 from __future__ import annotations
 
+import errno
 import fnmatch
 import hashlib
 import threading
@@ -29,7 +34,15 @@ _PLANS: Tuple["FaultPlan", ...] = ()
 
 DATA_KINDS = ("nan_slab", "truncate")
 DISPATCH_KINDS = ("transient", "fatal", "delay", "hang")
-KINDS = DATA_KINDS + DISPATCH_KINDS
+IO_KINDS = ("io_torn", "io_enospc")
+KINDS = DATA_KINDS + DISPATCH_KINDS + IO_KINDS
+
+
+def _channel_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "fault kind 'channel' is not ported yet: it needs "
+        "phy/profiles.py (ROADMAP.md queue 1, item 3, 'TX, channel and "
+        "link')")
 
 
 class InjectedFault(Exception):
@@ -78,10 +91,7 @@ class FaultPlan:
         specs = tuple(specs)
         for sp in specs:
             if sp.kind == "channel":
-                raise NotImplementedError(
-                    "fault kind 'channel' is not ported yet: it needs "
-                    "phy/profiles.py (ROADMAP.md queue 1, item 3, 'TX, "
-                    "channel and link')")
+                raise _channel_not_ported()
             if sp.kind not in KINDS:
                 raise ValueError(
                     f"unknown fault kind {sp.kind!r} (known: {KINDS})")
@@ -146,17 +156,23 @@ def inject(*specs: FaultSpec, seed: int = 0,
             _PLANS = tuple(lst)
 
 
-def maybe_fail(site: str) -> None:
+def maybe_fail(site: str, budget_s: Optional[float] = None) -> bool:
     """The dispatch seam: a matching delay or hang sleeps ``delay_s``,
-    a transient or fatal spec raises its injected error."""
+    a transient or fatal spec raises its injected error. With a
+    watchdog ``budget_s``, a sleep longer than it is cut at the budget
+    and the call returns True (the caller raises its timeout before
+    launching anything); else False."""
     if not _PLANS:
-        return
+        return False
     for plan in _PLANS:
         got = plan.decide(site, DISPATCH_KINDS)
         if got is None:
             continue
         sp, idx = got
         if sp.kind in ("delay", "hang"):
+            if budget_s is not None and sp.delay_s > budget_s:
+                time.sleep(budget_s)
+                return True
             time.sleep(sp.delay_s)
         elif sp.kind == "transient":
             raise InjectedTransientError(
@@ -166,6 +182,7 @@ def maybe_fail(site: str) -> None:
             raise InjectedFatalError(
                 f"INVALID_ARGUMENT: injected fatal fault at {site} "
                 f"(call {idx})")
+    return False
 
 
 def corrupt_slab(site: str, arr: np.ndarray):
@@ -194,3 +211,24 @@ def corrupt_slab(site: str, arr: np.ndarray):
             arr = arr[:keep]
         kinds.append(sp.kind)
     return arr, tuple(kinds)
+
+
+def io_fault(site: str, data: bytes) -> bytes:
+    """The durability write seam, on a payload about to be written:
+    ``io_torn`` returns a truncated prefix (at least one byte short),
+    ``io_enospc`` raises ``OSError(ENOSPC)`` as a full disk would."""
+    if not _PLANS:
+        return data
+    for plan in _PLANS:
+        got = plan.decide(site, IO_KINDS)
+        if got is None:
+            continue
+        sp, idx = got
+        if sp.kind == "io_enospc":
+            raise OSError(
+                errno.ENOSPC,
+                f"No space left on device (injected at {site}, "
+                f"call {idx})")
+        keep = min(len(data) - 1, int(len(data) * (1.0 - sp.fraction)))
+        data = data[: max(0, keep)]
+    return data
