@@ -125,7 +125,40 @@ Phases, each printing one JSON line:
    resubmitting from ``acked``: the emissions, deduplicated by start,
    equal the first run's (the NaN session's again only frames of its
    lone receiver);
-8. timing: ``receive_many`` in every decode mode, the modes in turns
+8. link: ``link.loopback_many`` over 128 PSDUs of 1000 bytes (16 a
+   rate, FCS appended and checked) at 25 dB per lane, CFO U(-0.01,
+   0.01), delay U[0, 200), each run with the launch counts zeroed just
+   before it and read just after: fused (one ACS and one traceback
+   launch), fused with ``fused_demap=True`` (one rate-switched fused
+   launch, one traceback) and staged (one ACS, one traceback); every
+   lane right, the three equal field for field, nothing degraded. Then
+   the ACS, traceback and rate-switched fused kernels at the first 16
+   lanes of the link's decode inputs bitwise equal to their plain
+   versions, stops checked; ``impair_many`` rows equal to
+   ``impair_one`` bitwise; the per-frame oracle (``rx.receive`` with
+   the known-rate fused kernel) equal to the batch on 8 lanes; an
+   urban-profile batch fused equal to staged. Times: the fused batch
+   (host clock, 3 reps), each stage under CUDA events (``encode_prep``,
+   ``impair_many_graph`` and its threefry ``normal``, acquire, gather,
+   front, ACS, traceback, CRC), the host's share on the host clock
+   (``_LinkGeometry`` with its ``batch_host_prep``, ``_fused_pass``, the
+   classification read's wait, ``_fused_results``), frames/s, capture
+   samples/s, peak device memory;
+9. sweep: ``link.sweep_ber`` over 64 PSDUs of 1000 bytes, rates 6, 24
+   and 54 Mbit/s, 0-14 dB in 2 dB steps, seeds 0 and 1: one ACS and
+   one traceback launch a (point, rate), nothing else; counts equal to
+   ``loopback_ber_bits`` at two points; no error at 6 Mbit/s at 14 dB.
+   The waterfall (BER per rate and SNR), wall ms and ms a (point,
+   rate);
+10. synth: ``serve.synth_load(8, 16, 12)``'s streams (made by
+   ``link.stream_many_multi``) through ``receive_streams`` at the
+   reference's serve-test geometry (chunk 4096, frame 1024, K 8; a
+   12-byte PSDU + FCS fills at most 7 symbols, so every frame fits the
+   window and none reaches the next frame's preamble): launches equal
+   to the decode dispatches, every frame emitted once at its true start
+   and right, each stream equal to a lone ``StreamReceiver``;
+   samples/s;
+11. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -198,6 +231,40 @@ SERVE_SESSIONS = 24
 SERVE_FRAMES = 8
 SERVE_SLAB = (1_000, 20_000)
 SERVE_NAN, SERVE_EVICT = 5, 2    # the sessions s5 and s2
+# the link phase: LINK_B PSDUs of LINK_BYTES bytes (LINK_B / 8 a rate,
+# FCS appended and checked) through link.loopback_many, per-lane SNR
+# LINK_SNR_DB, CFO U(-LINK_CFO, LINK_CFO), delay U[0, LINK_DELAY); the
+# kernels held to their plain versions on the first LINK_CHECK_LANES
+# lanes of the first decode; the per-frame oracle on LINK_ORACLE lanes
+LINK_B = 128
+LINK_BYTES = 1000
+LINK_SNR_DB = 25.0
+LINK_CFO = 0.01
+LINK_DELAY = 200
+LINK_CHECK_LANES = 16
+LINK_ORACLE = 8
+LINK_IDENTITY_LANES = (0, 37, 90, 127)   # impair_many row == impair_one
+LINK_SEED = 20261017
+# the sweep phase: link.sweep_ber over SWEEP_B PSDUs of SWEEP_BYTES
+SWEEP_B = 64
+SWEEP_BYTES = 1000
+SWEEP_RATES = (6, 24, 54)
+SWEEP_SNRS = tuple(float(v) for v in range(0, 16, 2))   # 0 ... 14 dB
+SWEEP_SEEDS = (0, 1)
+SWEEP_LOOP_POINTS = ((0.0, 0), (8.0, 1))    # held to loopback_ber_bits
+# the synth phase: serve.synth_load's SYNTH_SESSIONS streams of
+# SYNTH_FRAMES frames of SYNTH_BYTES bytes through receive_streams at
+# SYNTH_GEO, the reference's serve tests' geometry (tests/test_serve.py
+# GEO). The window is sized to the longest frame (6 Mbit/s, 7 symbols,
+# 960 samples): a window much wider than a short frame plus its 300-600
+# sample gap holds the next frame's preamble, and the streaming
+# receiver, the reference's as the port's, may time onto it
+SYNTH_SESSIONS = 8
+SYNTH_FRAMES = 16
+SYNTH_BYTES = 12
+SYNTH_GEO = {"chunk_len": 4096, "frame_len": 1024,
+             "max_frames_per_chunk": 8}
+SYNTH_SEED = 20261017
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -566,11 +633,12 @@ def push_slabs(sr, stream, lo: int, hi: int):
 
 
 class StepTimer:
-    """CUDA events around every call of the module functions named:
-    their mean milliseconds a call."""
+    """CUDA events (or, with `host`, the host clock) around every call
+    of the module functions named: their mean milliseconds a call."""
 
-    def __init__(self, module, names):
+    def __init__(self, module, names, host: bool = False):
         self.module, self.names, self.events = module, names, {}
+        self.host = host
 
     def __enter__(self):
         import torch
@@ -580,6 +648,11 @@ class StepTimer:
             calls = self.events.setdefault(n, [])
 
             def timed(*a, fn=fn, calls=calls, **k):
+                if self.host:
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    calls.append((time.perf_counter() - t0) * 1e3)
+                    return out
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -598,8 +671,9 @@ class StepTimer:
         import torch
 
         torch.cuda.synchronize()
-        return {n: (float(np.mean([a.elapsed_time(b) for a, b in c]))
-                    if c else None) for n, c in self.events.items()}
+        return {n: (float(np.mean([c if self.host else c[0].elapsed_time(
+                    c[1]) for c in cs])) if cs else None)
+                for n, cs in self.events.items()}
 
 
 class KernelTap:
@@ -1315,6 +1389,312 @@ def serve_phase(rng, dev, card):
             launches)
 
 
+class _SlicedTap:
+    """The first `n` lanes of a KernelTap's recorded kernel inputs, in
+    the shape ``stream_kernel_checks`` reads."""
+
+    def __init__(self, tap, n: int):
+        def cut(v):
+            return v[:n] if isinstance(v, list) or getattr(v, "ndim", 0) \
+                else v
+        self.args = {k: ([cut(v) for v in a], kw)
+                     for k, (a, kw) in tap.args.items()}
+
+
+def link_psdus(rng):
+    """LINK_B PSDUs (LINK_B / 8 a rate, lane k at rate k % 8) and the
+    per-lane channel: (psdus, rates, snr, cfo, delay)."""
+    from ziria_tpu_torch.phy.wifi.params import RATE_MBPS_ORDER
+
+    rates = [RATE_MBPS_ORDER[k % 8] for k in range(LINK_B)]
+    psdus = [rng.integers(0, 256, LINK_BYTES).astype(np.uint8)
+             for _ in rates]
+    cfo = rng.uniform(-LINK_CFO, LINK_CFO, LINK_B)
+    delay = rng.integers(0, LINK_DELAY, LINK_B)
+    return psdus, rates, np.full(LINK_B, LINK_SNR_DB), cfo, delay
+
+
+def link_right(results, psdus, rates) -> list:
+    """Lanes of a loopback_many run that are not right: ok, rate,
+    length (PSDU + FCS), FCS good and payload bits as sent."""
+    import torch
+
+    from ziria_tpu_torch.ops.crc import append_crc32
+    from ziria_tpu_torch.utils.bits import bytes_to_bits
+
+    bad = []
+    for i, (r, p, m) in enumerate(zip(results, psdus, rates)):
+        want = append_crc32(bytes_to_bits(torch.from_numpy(p))).numpy()
+        if not (r.ok and r.rate_mbps == m and r.length_bytes == len(p) + 4
+                and r.crc_ok is True and np.array_equal(r.psdu_bits, want)):
+            bad.append(i)
+    return bad
+
+
+def link_phase(rng, dev, card):
+    """The loopback link on the card: loopback_many fused (default and
+    fused_demap) and staged over LINK_B full-width frames, each with
+    the launch counts zeroed just before it and read just after; then
+    the kernels at the link's first decode inputs against their plain
+    versions, impair_many's rows against impair_one, the per-frame
+    oracle, an urban batch, and the timing. Returns (the phase's JSON
+    object, each run's launches, the kernel checks)."""
+    import torch
+
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.phy import channel, link
+    from ziria_tpu_torch.phy.wifi import rx, tx
+    from ziria_tpu_torch.utils import telemetry, threefry
+
+    psdus, rates, snr, cfo, delay = link_psdus(rng)
+    kw = dict(snr_db=snr, cfo=cfo, delay=delay, seed=LINK_SEED,
+              add_fcs=True, check_fcs=True, device=dev)
+    runs = {"link_fused": ({}, {"acs": 1, "traceback": 1}),
+            "link_fused_demap": ({"fused_demap": True},
+                                 {"fused_mixed": 1, "traceback": 1}),
+            "link_staged": ({"fused": False}, {"acs": 1, "traceback": 1})}
+    out, launches_of, results, taps = {}, {}, {}, {}
+    for name, (knobs, want) in runs.items():
+        fused_demap = bool(knobs.get("fused_demap"))
+        tap = KernelTap([(vc, "traceback"),
+                         (vf, "fused_acs_mixed") if fused_demap
+                         else (vc, "acs")])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vc.reset_launches()
+        vf.reset_launches()
+        with telemetry.collect() as reg, tap:
+            res, ms = host_ms(lambda: link.loopback_many(psdus, rates, **kw,
+                                                         **knobs))
+        launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+        degraded = {k: v for k, v in reg.counters().items()
+                    if "degraded" in k or k.startswith("resilience.")}
+        results[name], launches_of[name], taps[name] = res, launches, tap
+        bad = link_right(res, psdus, rates)
+        out[name] = {"knobs": {k: v for k, v in knobs.items()},
+                     "first_call_ms": ms, "launches": launches,
+                     "correct": LINK_B - len(bad), "failed": bad,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                     "containment_counters": degraded}
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"{name}: launches {launches}, want {want}")
+        check(not bad, f"{name}: lanes decoded wrongly: {bad}")
+        check(not degraded, f"{name}: degraded or contained: {degraded}")
+    for name in ("link_fused_demap", "link_staged"):
+        check(all(same_result(a, b) for a, b in
+                  zip(results[name], results["link_fused"])),
+              f"{name} differs field for field from link_fused")
+
+    # after the counts are read: these launches compare and count nowhere
+    checks = {}
+    for name, fused in (("link_fused", False), ("link_fused_demap", True)):
+        checks[name] = stream_kernel_checks(
+            torch, name, _SlicedTap(taps[name], LINK_CHECK_LANES), fused)
+    del taps
+
+    # impair_many row i against impair_one at lane i, on the card
+    txb = tx.encode_many(psdus, rates, add_fcs=True, device=dev)
+    _sb, l_cap = link._link_buckets(psdus, rates, True, int(delay.max()))
+    caps = channel.impair_many(txb.samples[:LINK_B], txb.n_valid, snr, cfo,
+                               delay, LINK_SEED, out_len=l_cap)
+    for i in LINK_IDENTITY_LANES:
+        one = channel.impair_one(txb.samples[i, :txb.n_valid[i]], snr[i],
+                                 cfo[i], delay[i], LINK_SEED, i, l_cap,
+                                 device=dev)
+        check(torch.equal(one, caps[i]),
+              f"impair_many row {i} differs from impair_one")
+    del caps, txb
+    # the per-frame oracle (rx.receive with the known-rate fused kernel)
+    # on the first LINK_ORACLE lanes: the same capture bucket and lane
+    # keys as the batch
+    oracle = link.loopback_many(psdus[:LINK_ORACLE], rates[:LINK_ORACLE],
+                                **dict(kw, snr_db=snr[:LINK_ORACLE],
+                                       cfo=cfo[:LINK_ORACLE],
+                                       delay=delay[:LINK_ORACLE]),
+                                batched_tx=False, fused_demap=True)
+    check(all(same_result(a, b) for a, b in
+              zip(oracle, results["link_fused_demap"][:LINK_ORACLE])),
+          "the per-frame oracle differs from the fused_demap batch")
+    # one urban batch: fused equal to staged
+    urban = {f: link.loopback_many(psdus, rates, **kw, fused=f,
+                                   channel_profile="urban")
+             for f in (True, False)}
+    check(all(same_result(a, b) for a, b in zip(urban[True], urban[False])),
+          "urban: fused differs from staged")
+
+    # timing: the fused batch on the host clock, 3 reps, then each stage
+    # under CUDA events (one more run)
+    reps = 3
+    batch_ms = sum(host_ms(lambda: link.loopback_many(psdus, rates, **kw))[1]
+                   for _ in range(reps)) / reps
+    with StepTimer(tx, ("encode_prep",)) as s_tx, \
+            StepTimer(channel, ("impair_many_graph",)) as s_ch, \
+            StepTimer(threefry, ("normal",)) as s_tf, \
+            StepTimer(rx, ("acquire_frame_graph", "gather_segment_graph",
+                           "mixed_front", "crc_psdu_many_graph")) as s_rx, \
+            StepTimer(vc, ("acs", "traceback")) as s_k:
+        link.loopback_many(psdus, rates, **kw)
+    step = {**s_tx.mean_ms(), **s_ch.mean_ms(), **s_tf.mean_ms(),
+            **s_rx.mean_ms(), **s_k.mean_ms()}
+    # the host's share, on the host clock (one more run): the batch
+    # geometry (its TX host prep within), the device pass's launches,
+    # the wait for the classification read, the per-lane results
+    torch.cuda.synchronize()
+    with StepTimer(link, ("_LinkGeometry", "_fused_pass", "_fused_results",
+                          "_loopback_fused"), host=True) as h_link, \
+            StepTimer(tx, ("batch_host_prep",), host=True) as h_tx:
+        (_r, total_ms) = host_ms(lambda: link.loopback_many(psdus, rates,
+                                                            **kw))
+    host = {**h_link.mean_ms(), **h_tx.mean_ms(), "loopback_many": total_ms}
+    host["head_read_wait"] = (host["_loopback_fused"] - host["_fused_pass"]
+                              - host["_fused_results"])
+    host["outside_geometry_and_pass"] = (
+        total_ms - host["_LinkGeometry"] - host["_loopback_fused"])
+    samples = LINK_B * l_cap
+    return ({"phase": "link", "card": card, "frames": LINK_B,
+             "psdu_bytes": LINK_BYTES, "fcs": True, "snr_db": LINK_SNR_DB,
+             "cfo_max": LINK_CFO, "delay_max": LINK_DELAY,
+             "capture_bucket": l_cap, "runs": out,
+             "fused_equals_staged": True, "fused_demap_equals_fused": True,
+             "impair_many_rows_equal_impair_one": list(LINK_IDENTITY_LANES),
+             "perframe_oracle_lanes": LINK_ORACLE,
+             "urban_fused_equals_staged": True,
+             "urban_correct": LINK_B - len(link_right(urban[True], psdus,
+                                                      rates)),
+             "kernels": checks, "batch_ms": batch_ms, "reps": reps,
+             "frames_per_s": LINK_B / batch_ms * 1e3,
+             "capture_samples_per_s": samples / batch_ms * 1e3,
+             "step_ms": step, "host_ms": host},
+            launches_of, checks)
+
+
+def sweep_phase(rng, dev, card):
+    """The BER sweep on the card: sweep_ber over SWEEP_B full-width
+    PSDUs, SWEEP_RATES x SWEEP_SNRS x SWEEP_SEEDS, launch counts zeroed
+    just before and read just after; held to a loop of
+    loopback_ber_bits at SWEEP_LOOP_POINTS. Returns (the phase's JSON
+    object, its launches)."""
+    import torch
+
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.phy import link
+    from ziria_tpu_torch.utils import telemetry
+
+    psdus = rng.integers(0, 256, (SWEEP_B, SWEEP_BYTES)).astype(np.uint8)
+    torch.cuda.synchronize()
+    vc.reset_launches()
+    vf.reset_launches()
+    with telemetry.collect() as reg:
+        errs, ms = host_ms(lambda: link.sweep_ber(
+            psdus, SWEEP_RATES, SWEEP_SNRS, SWEEP_SEEDS, device=dev))
+    launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+    degraded = {k: v for k, v in reg.counters().items()
+                if "degraded" in k or k.startswith("resilience.")}
+    n_decodes = len(SWEEP_RATES) * len(SWEEP_SNRS) * len(SWEEP_SEEDS)
+    want = {k: 0 for k in launches}
+    want.update(acs=n_decodes, traceback=n_decodes)
+    check(launches == want, f"sweep: launches {launches}, want {want}")
+    check(not degraded, f"sweep: degraded or contained: {degraded}")
+    check(errs.shape == (len(SWEEP_RATES), len(SWEEP_SNRS),
+                         len(SWEEP_SEEDS)), f"sweep: shape {errs.shape}")
+    check(int(errs[SWEEP_RATES.index(6), -1].sum()) == 0,
+          "sweep: errors at 6 Mbit/s at the top SNR")
+    bits = np.unpackbits(psdus, axis=1, bitorder="little")
+    for snr, seed in SWEEP_LOOP_POINTS:
+        si, ki = SWEEP_SNRS.index(snr), SWEEP_SEEDS.index(seed)
+        for ri, m in enumerate(SWEEP_RATES):
+            got = link.loopback_ber_bits(psdus, m, snr, seed, device=dev)
+            check(int((got != bits).sum()) == int(errs[ri, si, ki]),
+                  f"sweep: {m} Mbit/s at {snr} dB seed {seed} differs from "
+                  f"loopback_ber_bits")
+    n_bits = SWEEP_B * 8 * SWEEP_BYTES * len(SWEEP_SEEDS)
+    ber = {str(m): {str(s): float(errs[ri, si].sum()) / n_bits
+                    for si, s in enumerate(SWEEP_SNRS)}
+           for ri, m in enumerate(SWEEP_RATES)}
+    return ({"phase": "sweep", "card": card, "frames": SWEEP_B,
+             "psdu_bytes": SWEEP_BYTES, "rates": list(SWEEP_RATES),
+             "snr_db": list(SWEEP_SNRS), "seeds": list(SWEEP_SEEDS),
+             "errors": errs.tolist(), "ber": ber, "ms": ms,
+             "ms_per_point_rate": ms / n_decodes, "launches": launches,
+             "equal_to_loop_at": [list(p) for p in SWEEP_LOOP_POINTS]},
+            launches)
+
+
+def synth_phase(rng, dev, card):
+    """serve.synth_load's streams through receive_streams on the card
+    at SYNTH_GEO, launch counts zeroed just before and read just after;
+    every frame emitted once at its true start and right, and each
+    stream equal to a lone receiver's.
+    Returns (the phase's JSON object, its launches)."""
+    import torch
+
+    from ziria_tpu_torch.backend import framebatch
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.ops.crc import append_crc32
+    from ziria_tpu_torch.phy import link
+    from ziria_tpu_torch.phy.wifi.params import RATES
+    from ziria_tpu_torch.runtime import serve
+    from ziria_tpu_torch.utils import dispatch
+    from ziria_tpu_torch.utils.bits import bytes_to_bits
+
+    seed = SYNTH_SEED
+    clients = serve.synth_load(SYNTH_SESSIONS, SYNTH_FRAMES, SYNTH_BYTES,
+                               seed=seed, device=dev)
+    # synth_load's own recipe, for the truth: the same PSDUs and streams
+    trng = np.random.default_rng(seed)
+    rates_all = sorted(RATES)
+    per_rates = [[rates_all[(i + j) % 8] for j in range(SYNTH_FRAMES)]
+                 for i in range(SYNTH_SESSIONS)]
+    per_psdus = [[trng.integers(0, 256, SYNTH_BYTES).astype(np.uint8)
+                  for _ in r] for r in per_rates]
+    streams, starts = link.stream_many_multi(
+        per_psdus, per_rates, snr_db=30.0, cfo=1e-4, delay=60, seed=seed,
+        add_fcs=True, tail=1024, device=dev)
+    xs = [c.stream for c in clients]
+    check(all(np.array_equal(a, b) for a, b in zip(xs, streams)),
+          "synth: synth_load's streams differ from stream_many_multi's")
+    torch.cuda.synchronize()
+    vc.reset_launches()
+    vf.reset_launches()
+    with dispatch.count_dispatches() as d:
+        (per, stats), ms = host_ms(lambda: framebatch.receive_streams(
+            xs, check_fcs=True, device=dev, **SYNTH_GEO))
+    launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+    decodes = d.counts.get("rx.stream_decode_multi", 0)
+    want = {k: 0 for k in launches}
+    want.update(acs=decodes, traceback=decodes)
+    check(decodes > 0 and launches == want,
+          f"synth: launches {launches}, want {want}")
+    n_right = 0
+    for i in range(SYNTH_SESSIONS):
+        sts = [int(v) for v in starts[i]]
+        check([f.start for f in per[i]] == sts,
+              f"synth: stream {i} emitted {[f.start for f in per[i]]}, "
+              f"sent {sts}")
+        for k, (f, m, p) in enumerate(zip(per[i], per_rates[i],
+                                          per_psdus[i])):
+            bits = append_crc32(bytes_to_bits(torch.from_numpy(p))).numpy()
+            ok = (f.result.ok and f.result.rate_mbps == m
+                  and f.result.length_bytes == SYNTH_BYTES + 4
+                  and f.result.crc_ok is True
+                  and np.array_equal(f.result.psdu_bits, bits))
+            n_right += ok
+            check(ok, f"synth: stream {i} frame {k} decoded wrongly")
+        check(same_frames(per[i], lone_frames(framebatch, dev, xs[i],
+                                              **SYNTH_GEO)),
+              f"synth: stream {i} differs from a lone StreamReceiver")
+    n = sum(x.shape[0] for x in xs)
+    return ({"phase": "synth", "card": card, "sessions": SYNTH_SESSIONS,
+             "frames_per_session": SYNTH_FRAMES, "psdu_bytes": SYNTH_BYTES,
+             "seed": seed, "geometry": SYNTH_GEO, "samples": n, "ms": ms,
+             "samples_per_s": n / ms * 1e3,
+             "frames": sum(len(p) for p in per),
+             "chunk_steps": stats.chunk_steps, "decode_dispatches": decodes,
+             "frames_right": n_right,
+             "launches": launches, "equal_to_lone_receivers": True},
+            launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1562,7 +1942,15 @@ def main(argv=None) -> int:
     serve_line, fleet_launches["serve"] = serve_phase(rng, dev, card)
     emit(serve_line)
 
-    # ---- 8. timing
+    # ---- 8. the loopback link, 9. the BER sweep, 10. the load generator
+    link_line, link_launches, link_checks = link_phase(rng, dev, card)
+    emit(link_line)
+    sweep_line, sweep_launches = sweep_phase(rng, dev, card)
+    emit(sweep_line)
+    synth_line, synth_launches = synth_phase(rng, dev, card)
+    emit(synth_line)
+
+    # ---- 11. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -1848,6 +2236,12 @@ def main(argv=None) -> int:
                                for fn, fl in fleet_launches.items()},
             "fleet_shapes": {fn: fc[name] for fn, fc in fleet_checks.items()
                              if name in fc},
+            "link_launches": {ln: ll[name]
+                              for ln, ll in link_launches.items()},
+            "link_shapes": {ln: lc[name] for ln, lc in link_checks.items()
+                            if name in lc},
+            "sweep_launches": sweep_launches[name],
+            "synth_launches": synth_launches[name],
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

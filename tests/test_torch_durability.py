@@ -120,8 +120,10 @@ def test_io_faults_equal_reference():
     assert fired[0] == fired[1] == [("io.site", "io_enospc", 1)]
     with pytest.raises(ValueError, match="unknown fault kind"):
         faults.FaultPlan([faults.FaultSpec("x", "io_nope", every=1)])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        faults.FaultPlan([faults.FaultSpec("x", "channel", every=1)])
+    with pytest.raises(ValueError, match="unknown channel profile"):
+        faults.FaultPlan([faults.FaultSpec("x", "channel", every=1,
+                                           profile="nope")])
+    faults.FaultPlan([faults.FaultSpec("x", "channel", every=1)])
 
 
 def test_snapshots_atomic_fallback_and_cross_package(tmp_path):

@@ -3,17 +3,21 @@ to it (``_strict``, as on a CUDA device) raises on a real failure of the
 decode, the scan, the host read or a per-capture window, and degrades or
 counts nothing; under ``watchdog_s`` every launch runs on the caller's
 thread, and a host read that never completes raises ``DispatchTimeout``
-(test_torch_fleet.py's geometry and streams).
+(test_torch_fleet.py's geometry and streams). The loopback link and the
+BER sweep keep the same rule: on a CUDA device only an injected fault
+degrades them.
 """
 
 import threading
 
 import pytest
+import torch
 
 from test_torch_fleet import GEO, S, fleet_streams, same_frames
 from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_fleet_state import port, run, slabs_of
 from ziria_tpu_torch.backend import framebatch
+from ziria_tpu_torch.phy import link
 from ziria_tpu_torch.runtime import resilience
 from ziria_tpu_torch.utils import faults, telemetry
 
@@ -90,3 +94,25 @@ def test_watchdog_on_the_callers_thread(fleet, monkeypatch):
     with pytest.raises(resilience.DispatchTimeout, match="0.05s watchdog"):
         run(msr, slabs)
     assert not msr.stats.degraded
+
+
+@pytest.mark.parametrize("site", ["link.fused", "link.sweep"])
+def test_card_rule_only_an_injected_fault_degrades(site):
+    """The link's and the sweep's rule on a CUDA device: an injected
+    fault (through the guarded dispatch) degrades and is counted; a
+    real failure, bare or through the dispatch, raises, and nothing is
+    counted for it. Off the card a real failure degrades too, as in the
+    reference."""
+    cuda = torch.device("cuda")
+    counter = site + "_degraded"
+    real = RuntimeError("CUDA error: an illegal memory access")
+    with telemetry.collect() as reg:
+        link._degrade_or_raise(resilience.DispatchFailed(
+            site, 1, "fatal", faults.InjectedFatalError(site)), cuda,
+            counter)
+        assert reg.counters()[counter] == 1
+        for e in (real, resilience.DispatchFailed(site, 1, "fatal", real)):
+            with pytest.raises(RuntimeError, match="illegal memory access"):
+                link._degrade_or_raise(e, cuda, counter)
+        link._degrade_or_raise(real, torch.device("cpu"), counter)
+    assert reg.counters()[counter] == 2

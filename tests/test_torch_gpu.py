@@ -517,3 +517,104 @@ def test_fleet_watchdog_launches_on_the_callers_thread(cuda, monkeypatch):
         not t.name.startswith("ziria") for t in threading.enumerate())
     for g, w in zip(per, want):
         _same_stream_frames(g, w)
+
+
+def test_threefry_draw_on_card_equals_cpu(cuda):
+    """The channel's draws on the card equal the CPU's bit for bit:
+    keys, words, uniforms and randint are integer ops, and the normal's
+    erfinv uses only correctly rounded float ops (frexp, add, multiply,
+    divide, sqrt, the float64 FMA twin)."""
+    from ziria_tpu_torch.utils import threefry
+
+    keys = threefry.fold_in(threefry.prng_key(20261017), torch.arange(16))
+    kc = keys.to(cuda)
+    assert torch.equal(threefry.bits(kc, (513, 2)).cpu(),
+                       threefry.bits(keys, (513, 2)))
+    assert torch.equal(threefry.uniform(kc, (4096,)).cpu(),
+                       threefry.uniform(keys, (4096,)))
+    assert torch.equal(threefry.normal(kc, (4096, 2)).cpu(),
+                       threefry.normal(keys, (4096, 2)))
+    assert torch.equal(threefry.randint(kc, (), 0, 1200).cpu(),
+                       threefry.randint(keys, (), 0, 1200))
+
+
+def test_link_on_card_fused_equals_staged_and_cpu(cuda):
+    """loopback_many on the card: fused (default and fused_demap) equal
+    to staged lane for lane, every frame right, and equal to the CPU's
+    run; impair_many row i equal to impair_one at lane i."""
+    from ziria_tpu_torch.phy import channel, link
+
+    rng = np.random.default_rng(21)
+    rates = [sorted(params.RATES)[i % 8] for i in range(16)]
+    psdus = [rng.integers(0, 256, 200).astype(np.uint8) for _ in rates]
+    kw = dict(snr_db=25.0, cfo=rng.uniform(-0.01, 0.01, 16),
+              delay=rng.integers(0, 200, 16), seed=4, add_fcs=True,
+              check_fcs=True)
+    fu = link.loopback_many(psdus, rates, device=cuda, **kw)
+    st = link.loopback_many(psdus, rates, fused=False, device=cuda, **kw)
+    fd = link.loopback_many(psdus, rates, fused_demap=True, device=cuda, **kw)
+    cpu = link.loopback_many(psdus, rates, device="cpu", **kw)
+    for other in (st, fd, cpu):
+        for a, b in zip(fu, other):
+            assert (a.ok, a.rate_mbps, a.length_bytes, a.crc_ok) == \
+                (b.ok, b.rate_mbps, b.length_bytes, b.crc_ok)
+            assert np.array_equal(a.psdu_bits, b.psdu_bits)
+    assert all(r.ok and r.crc_ok for r in fu)
+    b = tx.encode_many(psdus, rates, add_fcs=True, device=cuda)
+    caps = channel.impair_many(b.samples, b.n_valid[0], 25.0, 0.003, 7, 9,
+                               out_len=8192)
+    for i in (0, 5, 15):
+        one = channel.impair_one(b.samples[i, :b.n_valid[0]], 25.0, 0.003,
+                                 7, 9, i, 8192, device=cuda)
+        assert torch.equal(one, caps[i])
+
+
+@pytest.mark.parametrize("site", ["fused", "sweep"])
+def test_link_on_card_degrades_only_for_an_injected_fault(cuda, site,
+                                                          monkeypatch):
+    """On the card a fault injected at ``link.fused`` (``link.sweep``)
+    degrades the batch to the staged link (the sweep to its loop of
+    loopback_ber_bits) with the same results, counted once; a real
+    failure of the device pass raises and degrades nothing."""
+    from ziria_tpu_torch.phy import link
+    from ziria_tpu_torch.utils import faults, telemetry
+
+    rng = np.random.default_rng(23)
+    if site == "fused":
+        rates = sorted(params.RATES)
+        psdus = [rng.integers(0, 256, 100).astype(np.uint8) for _ in rates]
+        kw = dict(snr_db=25.0, cfo=1e-3, delay=30, seed=3, add_fcs=True,
+                  check_fcs=True, device=cuda)
+
+        def run():
+            return link.loopback_many(psdus, rates, **kw)
+        want = link.loopback_many(psdus, rates, fused=False, **kw)
+        inner = "_fused_pass"
+    else:
+        psdus = rng.integers(0, 256, (8, 40)).astype(np.uint8)
+
+        def run():
+            return link.sweep_ber(psdus, (6, 54), (0.0, 8.0), (1,),
+                                  device=cuda)
+        want = run()
+        inner = "_sweep_points"
+    with telemetry.collect() as reg, faults.inject(
+            faults.FaultSpec(f"link.{site}", "fatal", calls=(0,))) as plan:
+        got = run()
+    assert len(plan.fired) == 1
+    assert reg.counters()[f"link.{site}_degraded"] == 1
+    if site == "fused":
+        for a, b in zip(got, want):
+            assert (a.ok, a.rate_mbps, a.length_bytes, a.crc_ok) == \
+                (b.ok, b.rate_mbps, b.length_bytes, b.crc_ok)
+            assert np.array_equal(a.psdu_bits, b.psdu_bits)
+    else:
+        assert np.array_equal(got, want)
+
+    def boom(*_a, **_k):
+        raise RuntimeError("a real device failure")
+    monkeypatch.setattr(link, inner, boom)
+    with telemetry.collect() as reg, \
+            pytest.raises(RuntimeError, match="real device failure"):
+        run()
+    assert not [k for k in reg.counters() if "degraded" in k]

@@ -165,9 +165,22 @@ def test_injected_transient_decode_fault_equals_reference(stream8):
     assert gf == [("rx.stream_decode", "transient", 1)]
     assert gc["resilience.retries"] == gc["resilience.recovered"] == 1
     assert not gst.degraded
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        faults.FaultPlan([faults.FaultSpec("rx.push", "channel",
-                                           every=1)])
+    # the channel kind corrupts a pushed slab as the reference's does
+    slab = np.asarray(slabs[0], np.float32)
+    corrupted = []
+    for fm in (faults, jfaults):
+        for prof in ("hostile", "severe", "bursty"):
+            with fm.inject(fm.FaultSpec("rx.push", "channel", calls=(1,),
+                                        profile=prof), seed=4) as p:
+                first, kinds0 = fm.corrupt_slab("rx.push", slab)
+                arr, kinds = fm.corrupt_slab("rx.push", slab)
+            assert first is slab and kinds0 == ()
+            assert kinds == ("channel",) and p.fired == [
+                ("rx.push", "channel", 1)]
+            corrupted.append(arr)
+    for a, b in zip(corrupted[:3], corrupted[3:]):
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+        assert not np.array_equal(a, slab)
 
 
 def test_receive_many_device_equals_reference(corpus):  # noqa: F811

@@ -1,0 +1,276 @@
+"""Named physical-channel profiles (a copy of
+ziria_tpu/phy/profiles.py, numpy only): a :class:`ChannelProfile` names
+a deterministic set of multipath taps, sampling-clock offset, oscillator
+drift and interference bursts; ``CHANNEL_PROFILES`` holds the named
+sets; ``phy/channel.py`` applies them (``impair_profile_graph``,
+``impair_stream``).
+
+``flat`` is the identity: :func:`resolve_profiles` turns an all-flat
+request into None, the unprofiled channel, so ``profile="flat"`` draws
+and computes exactly what no profile does. A flat lane riding a mixed
+profiled batch goes through the profiled graph with neutral
+parameters, each an exact identity (one-hot taps, zero-fraction
+resample, zero phase, zero burst amplitude).
+
+Knob: ``ZIRIA_CHANNEL_PROFILE`` (:func:`env_channel_profile` is its one
+reader) sets the default profile of ``link.stream_many[_multi]``,
+``link.loopback_many`` and ``serve.synth_load``. ``link.sweep_ber``
+does not read it: its profile axis changes the shape of the result, so
+it takes ``profiles=[...]`` only.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+
+class ChannelProfile(NamedTuple):
+    """One named physical-channel parameter set. All fields are plain
+    data (hashable); the impair graphs apply them in the order taps ->
+    SCO resample -> CFO+drift phase -> delay -> AWGN -> bursts."""
+    name: str
+    #: causal complex FIR taps as (re, im) pairs, unit total energy
+    #: (sum |h|^2 == 1, so the SNR reference is tap-invariant); tap k
+    #: is the path at k samples excess delay — keep the spread under
+    #: the 16-sample cyclic prefix or the equalizer model breaks
+    taps: Tuple[Tuple[float, float], ...] = ((1.0, 0.0),)
+    #: sampling-clock offset as a fraction (80e-6 = 80 ppm): the RX
+    #: resamples at positions n * (1 + sco) — a slowly growing timing
+    #: drift, i.e. a per-subcarrier phase ramp growing over the frame
+    sco: float = 0.0
+    #: residual-CFO / Doppler drift in rad/sample^2: the oscillator
+    #: offset itself drifts, phase(n) = eps*n + drift*n^2/2
+    drift: float = 0.0
+    #: seeded interference bursts: a burst_len-sample noise burst
+    #: every burst_every samples (0 = none), at burst_db relative to
+    #: the lane's signal power, position offset drawn from the lane
+    #: key (deterministic per (seed, lane))
+    burst_every: int = 0
+    burst_len: int = 0
+    burst_db: float = 0.0
+
+    @property
+    def is_flat(self) -> bool:
+        """True when every parameter is the exact-identity neutral
+        value (the profiled graph reproduces the unprofiled one
+        bitwise; `resolve_profiles` short-circuits such requests to
+        the unprofiled path entirely)."""
+        return (len(self.taps) == 1 and self.taps[0] == (1.0, 0.0)
+                and self.sco == 0.0 and self.drift == 0.0
+                and self.burst_every == 0)
+
+
+def _norm_taps(raw: Sequence[complex]) -> Tuple[Tuple[float, float], ...]:
+    """Normalize a complex tap list to unit total energy and freeze it
+    as (re, im) pair tuples (hashable: a profile travels by name)."""
+    e = math.sqrt(sum(abs(t) ** 2 for t in raw))
+    return tuple((float(t.real / e), float(t.imag / e)) for t in raw)
+
+
+def _exp_taps(n: int, decay: float, phase_step: float) -> Tuple:
+    """Exponential-decay tap set with golden-angle-style phases (fixed
+    constants, nothing drawn): tap k = decay^k * e^{j*k*phase_step}.
+    Irrational-looking phases keep the frequency response generic —
+    deep fades, no contrived symmetry."""
+    return _norm_taps([decay ** k * complex(math.cos(k * phase_step),
+                                            math.sin(k * phase_step))
+                       for k in range(n)])
+
+
+#: the named profile registry, flat -> severe delay spread plus the
+#: non-FIR physical faults
+CHANNEL_PROFILES = {
+    # the identity anchor: today's AWGN+CFO+delay channel, untouched
+    "flat": ChannelProfile("flat"),
+    # light two-path fading, 1-sample excess delay
+    "mild": ChannelProfile("mild", taps=_norm_taps(
+        [1.0, 0.35 * complex(math.cos(2.1), math.sin(2.1))])),
+    # moderate urban-style spread: 5 paths over 4 samples
+    "urban": ChannelProfile("urban", taps=_exp_taps(5, 0.62, 2.399)),
+    # severe frequency-selective spread: 10 paths over 9 samples
+    # (still inside the 16-sample CP), deep in-band fades
+    "severe": ChannelProfile("severe", taps=_exp_taps(10, 0.78, 2.399)),
+    # sampling-clock offset alone: 80 ppm timing drift
+    "sco": ChannelProfile("sco", sco=80e-6),
+    # residual-CFO / Doppler drift alone
+    "doppler": ChannelProfile("doppler", drift=2e-7),
+    # seeded interference bursts at signal power, ~8% duty
+    "bursty": ChannelProfile("bursty", burst_every=1200, burst_len=96,
+                             burst_db=0.0),
+    # everything at once, each dialed back: the campaign profile
+    "hostile": ChannelProfile("hostile", taps=_exp_taps(5, 0.62, 2.399),
+                              sco=40e-6, drift=1e-7, burst_every=2000,
+                              burst_len=64, burst_db=-3.0),
+}
+
+ProfileLike = Union[str, ChannelProfile]
+
+
+def get_profile(p: ProfileLike) -> ChannelProfile:
+    """Name (or a REGISTRY ChannelProfile, passed through) ->
+    ChannelProfile; unknown names raise a ValueError NAMING the known
+    profiles (never a silent flat run). Ad-hoc ChannelProfile objects
+    are rejected: every consumer identifies a profile BY NAME, so an
+    unregistered object would silently decay to whatever its name
+    looks up — register it in CHANNEL_PROFILES instead."""
+    if isinstance(p, ChannelProfile):
+        reg = CHANNEL_PROFILES.get(p.name)
+        if reg is None or reg != p:
+            raise ValueError(
+                f"ChannelProfile {p.name!r} is not the registry entry "
+                f"of that name; ad-hoc profiles are not supported — "
+                f"profiles travel BY NAME, so add it to "
+                f"profiles.CHANNEL_PROFILES first "
+                f"(known: {', '.join(sorted(CHANNEL_PROFILES))})")
+        return reg
+    prof = CHANNEL_PROFILES.get(p)
+    if prof is None:
+        raise ValueError(
+            f"unknown channel profile {p!r} "
+            f"(known: {', '.join(sorted(CHANNEL_PROFILES))})")
+    return prof
+
+
+def parse_profile_spec(text: str) -> Tuple[str, ...]:
+    """Parse a channel-profile spec: a single name or a
+    comma-separated per-lane list (``"flat,severe"`` — lane i rides
+    name i, cycling when the lane count exceeds the list). Validates
+    every name; returns the name tuple."""
+    names = tuple(s.strip() for s in text.split(",") if s.strip())
+    if not names:
+        raise ValueError("empty channel-profile spec")
+    for n in names:
+        get_profile(n)
+    return names
+
+
+def env_channel_profile() -> Optional[Tuple[str, ...]]:
+    """The ONE reading of the ``ZIRIA_CHANNEL_PROFILE`` knob.
+    Returns the parsed name tuple, or None when unset/empty."""
+    import os
+
+    text = os.environ.get("ZIRIA_CHANNEL_PROFILE")
+    if not text:
+        return None
+    return parse_profile_spec(text)
+
+
+def resolve_profiles(profile, n_lanes: int,
+                     use_env: bool = True) -> Optional[Tuple[str, ...]]:
+    """Resolve a channel-profile request to per-lane profile names, or
+    None for the unprofiled path. ``profile`` is None (-> the
+    ``ZIRIA_CHANNEL_PROFILE`` env default, itself usually unset), a
+    name / ChannelProfile, or a per-lane sequence (shorter sequences
+    cycle). An all-``flat`` resolution returns None — flat IS the
+    unprofiled channel, by construction (module docstring), so no new
+    program compiles and the dispatch budget is untouched.
+
+    ``use_env=False`` skips the env default: the low-level channel
+    surfaces (`channel.impair_many/one/stream`) pass it so a TOP-level
+    surface that already resolved the knob — where an explicit
+    ``"flat"`` legitimately collapsed to None — can never have the
+    env default resurrected underneath it."""
+    if profile is None:
+        if not use_env:
+            return None
+        profile = env_channel_profile()
+        if profile is None:
+            return None
+    if isinstance(profile, str):
+        # a bare name or the comma grammar ("flat,severe")
+        profile = parse_profile_spec(profile)
+    elif isinstance(profile, ChannelProfile):
+        profile = (profile,)
+    names = tuple(get_profile(p).name for p in profile)
+    if not names:
+        return None
+    names = tuple(names[i % len(names)] for i in range(n_lanes))
+    if all(get_profile(n).is_flat for n in names):
+        return None
+    return names
+
+
+def lane_arrays(names: Sequence[str]):
+    """Per-lane profile names -> the stacked numpy parameter arrays
+    the vmapped impair graph consumes: ``(taps (R, T, 2), sco (R,),
+    drift (R,), burst_every (R,), burst_len (R,), burst_db (R,))``
+    with T the max tap count (shorter sets zero-padded — trailing
+    zero taps are exact no-ops in the FIR)."""
+    profs = [get_profile(n) for n in names]
+    t_max = max(len(p.taps) for p in profs)
+    taps = np.zeros((len(profs), t_max, 2), np.float32)
+    for i, p in enumerate(profs):
+        taps[i, : len(p.taps)] = np.asarray(p.taps, np.float32)
+    return (taps,
+            np.asarray([p.sco for p in profs], np.float32),
+            np.asarray([p.drift for p in profs], np.float32),
+            np.asarray([p.burst_every for p in profs], np.int32),
+            np.asarray([p.burst_len for p in profs], np.int32),
+            np.asarray([p.burst_db for p in profs], np.float32))
+
+
+def np_apply_taps(x: np.ndarray, prof: ChannelProfile) -> np.ndarray:
+    """Host-side (numpy, float64) complex-FIR application of a
+    profile's taps — the streaming-stimulus twin of the tensor
+    ``channel.multipath`` and the oracle the unit test pins it
+    against. (n, 2) f32 in -> (n, 2) f32 out, same length, causal."""
+    if len(prof.taps) == 1 and prof.taps[0] == (1.0, 0.0):
+        return np.asarray(x, np.float32)
+    xc = x[:, 0].astype(np.float64) + 1j * x[:, 1].astype(np.float64)
+    t = np.asarray([tr + 1j * ti for tr, ti in prof.taps],
+                   np.complex128)
+    yc = np.convolve(xc, t)[: xc.shape[0]]
+    return np.stack([yc.real, yc.imag], axis=-1).astype(np.float32)
+
+
+def np_apply_sco(x: np.ndarray, sco: float) -> np.ndarray:
+    """Host-side SCO resample: linear interpolation at positions
+    ``n * (1 + sco)`` (float64 positions — streams run to millions of
+    samples). ``sco == 0`` returns the input unchanged."""
+    if not sco:
+        return np.asarray(x, np.float32)
+    n = x.shape[0]
+    pos = np.arange(n, dtype=np.float64) * (1.0 + float(sco))
+    base = np.arange(n, dtype=np.float64)
+    return np.stack(
+        [np.interp(pos, base, x[:, 0].astype(np.float64)),
+         np.interp(pos, base, x[:, 1].astype(np.float64))],
+        axis=-1).astype(np.float32)
+
+
+def np_apply_drift(x: np.ndarray, drift: float) -> np.ndarray:
+    """Host-side Doppler/oscillator-drift rotation: the quadratic
+    phase ``drift * n^2 / 2`` (float64 trig). The ONE standalone
+    host form of the drift term — `channel.impair_stream` folds the
+    same phase into its combined CFO rotation instead (one rotation,
+    one f32 cast), which is the only reason it does not call this."""
+    if not drift:
+        return np.asarray(x, np.float32)
+    t = np.arange(x.shape[0], dtype=np.float64)
+    theta = 0.5 * float(drift) * t * t
+    c, s = np.cos(theta), np.sin(theta)
+    return np.stack([x[:, 0] * c - x[:, 1] * s,
+                     x[:, 0] * s + x[:, 1] * c],
+                    axis=-1).astype(np.float32)
+
+
+def np_burst_mask(n: int, prof: ChannelProfile,
+                  offset: int) -> np.ndarray:
+    """The ONE host-side burst-window rule (boolean (n,)): sample i
+    is in-burst iff ``(i - offset) % burst_every < burst_len``; the
+    caller draws the offset (`channel.impair_stream`: threefry off the
+    lane key)."""
+    return ((np.arange(n) - int(offset)) % prof.burst_every) \
+        < prof.burst_len
+
+
+def np_burst_amp(p_sig: float, prof: ChannelProfile) -> float:
+    """The ONE host-side burst amplitude rule: per-component noise
+    std for a burst at ``burst_db`` relative to signal power `p_sig`
+    (the same ``sqrt(p * 10^(db/10) / 2)`` the tensor `_burst_graph`
+    computes)."""
+    return float(np.sqrt(max(p_sig, 0.0)
+                         * 10.0 ** (prof.burst_db / 10.0) / 2.0))

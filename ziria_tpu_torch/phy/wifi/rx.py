@@ -32,6 +32,7 @@ from ziria_tpu_torch.ops import coding, cplx, demap as demap_mod, \
     interleave, ofdm, scramble, sync, viterbi, viterbi_cuda, viterbi_fused
 from ziria_tpu_torch.ops.crc import check_crc32, check_crc32_masked
 from ziria_tpu_torch.phy.wifi.params import (MAX_DBPS, N_SERVICE_BITS,
+                                             N_TAIL_BITS,
                                              RATE_MBPS_ORDER, RATES,
                                              SIGNAL_BITS_TO_MBPS,
                                              RateParams, n_symbols)
@@ -351,6 +352,46 @@ def _classify_acquire(found: bool, avail: int, rate_bits: int,
         return RxResult(False, rate_mbps, length_bytes,
                         np.zeros(0, np.uint8), None), None
     return None, (rate_mbps, n_sym)
+
+
+# 16-entry tables over the 4-bit SIGNAL RATE field: mbps (0 for the 8
+# invalid codes) and n_dbps, so :func:`classify_acquire_graph` runs
+# ``SIGNAL_BITS_TO_MBPS.get`` and ``n_symbols`` as tensor ops
+_RB_TO_MBPS = np.zeros(16, np.int64)
+_RB_TO_DBPS = np.zeros(16, np.int64)
+for _rb, _m in SIGNAL_BITS_TO_MBPS.items():
+    _RB_TO_MBPS[_rb] = _m
+    _RB_TO_DBPS[_rb] = RATES[_m].n_dbps
+
+# classification codes of the tensor tree and its host readers
+ACQ_FAIL, ACQ_TRUNCATED, ACQ_DECODABLE = 0, 1, 2
+
+
+def classify_acquire_graph(found, avail, rate_bits, length_bytes,
+                           parity_ok):
+    """The tensor twin of :func:`_classify_acquire`, elementwise over a
+    batch of acquisitions on their device (no host read). Returns
+    (status, rate_mbps, length_bytes, n_sym) as int64 tensors: status
+    ``ACQ_FAIL`` (no detect, short capture, bad parity or unknown rate;
+    rate and length 0, as the host tree's failure), ``ACQ_TRUNCATED``
+    (the capture cannot hold the claimed DATA field; rate and length
+    as parsed) or ``ACQ_DECODABLE``."""
+    dev = found.device
+    rb = rate_bits.to(torch.int64) & 15
+    mbps = torch.from_numpy(_RB_TO_MBPS).to(dev)[rb]
+    dbps = torch.from_numpy(_RB_TO_DBPS).to(dev)[rb]
+    avail = avail.to(torch.int64)
+    length = length_bytes.to(torch.int64)
+    known = found.bool() & (avail >= 400) & parity_ok.bool() & (mbps > 0)
+    n_bits = N_SERVICE_BITS + 8 * length + N_TAIL_BITS
+    n_sym = torch.div(n_bits + dbps - 1, torch.clamp(dbps, min=1),
+                      rounding_mode="floor")
+    fits = avail >= FRAME_DATA_START + 80 * n_sym
+    status = torch.where(known, torch.where(fits, ACQ_DECODABLE,
+                                            ACQ_TRUNCATED), ACQ_FAIL)
+    zero = torch.zeros_like(mbps)
+    return (status, torch.where(known, mbps, zero),
+            torch.where(known, length, zero), torch.where(known, n_sym, zero))
 
 
 def acquire_frame_graph(x, n_valid, limit):

@@ -1,8 +1,8 @@
 """Continuous-batching serving runtime: client sessions multiplexed onto
 one fixed S-lane fleet (counterpart of ziria_tpu/runtime/serve.py:
 ``ServeConfig`` :90, ``AdmitResult``, ``SubmitResult``, ``ServeStats``,
-``_Session``, ``ServeRuntime`` :244-1076, ``ClientSpec`` :1081 and
-``run_clients`` :1163).
+``_Session``, ``ServeRuntime`` :244-1076, ``ClientSpec`` :1081,
+``synth_load`` :1095 and ``run_clients`` :1163).
 
 - **Admission**: a session gets a free lane, waits in a bounded queue,
   or is rejected with a ``retry_after_s`` hint (scaled by the queue
@@ -898,6 +898,65 @@ class ClientSpec(NamedTuple):
     stream: np.ndarray
     slo_s: Optional[float] = None
     mode: str = "ok"
+
+
+def synth_load(n_sessions: int, frames_per_session: int = 3,
+               n_bytes: int = 12, snr_db: float = 30.0, seed: int = 0,
+               add_fcs: bool = True, tail: int = 1024, arrival=None,
+               misbehave: Optional[Dict[int, str]] = None,
+               slo_s: Optional[float] = None, channel_profile=None,
+               device="cuda") -> List[ClientSpec]:
+    """The many-client load generator: `n_sessions` mixed-rate streams
+    (session i starts at the i-th rate) from ``link.stream_many_multi``
+    (CFO 1e-4, 60 idle samples first, `snr_db`, the channel profile),
+    cut into its seeded arrival schedules. ``misbehave`` maps session
+    indices to a bad-client mode: ``"nan"`` (every 7th sample of the
+    middle slab NaN), ``"flood"`` (the whole stream at tick 0 in
+    16,384-sample slabs), ``"stall"`` (the first half of the schedule,
+    then silence) or ``"oversize"`` (one 2^20-sample slab first).
+    Deterministic per seed; the streams are made on `device`."""
+    from ziria_tpu_torch.phy import link
+    from ziria_tpu_torch.phy.wifi.params import RATES
+
+    if arrival is None:
+        arrival = link.ArrivalSpec()
+    misbehave = dict(misbehave or {})
+    rng = np.random.default_rng(seed)
+    rates_all = sorted(RATES)
+    psdus_per, rates_per = [], []
+    for i in range(n_sessions):
+        rates = [rates_all[(i + j) % len(rates_all)]
+                 for j in range(frames_per_session)]
+        rates_per.append(rates)
+        psdus_per.append([rng.integers(0, 256, n_bytes).astype(np.uint8)
+                          for _ in rates])
+    streams, _starts, schedules = link.stream_many_multi(
+        psdus_per, rates_per, snr_db=snr_db, cfo=1e-4, delay=60, seed=seed,
+        add_fcs=add_fcs, tail=tail, arrival=arrival,
+        channel_profile=channel_profile, device=device)
+    out = []
+    for i in range(n_sessions):
+        mode = misbehave.get(i, "ok")
+        sched = schedules[i]
+        if mode == "flood":
+            whole = streams[i]
+            sched = [(0, whole[a: a + (1 << 14)])
+                     for a in range(0, whole.shape[0], 1 << 14)]
+        elif mode == "stall":
+            sched = sched[: max(1, len(sched) // 2)]
+        elif mode == "nan":
+            j = len(sched) // 2
+            t, bad = sched[j]
+            bad = np.array(bad, copy=True)
+            bad[:: 7] = np.nan
+            sched = sched[:j] + [(t, bad)] + sched[j + 1:]
+        elif mode == "oversize":
+            t0 = sched[0][0] if sched else 0
+            sched = [(t0, np.zeros((1 << 20, 2), np.float32))] + sched
+        elif mode != "ok":
+            raise ValueError(f"unknown misbehave mode {mode!r}")
+        out.append(ClientSpec(f"s{i}", sched, streams[i], slo_s, mode))
+    return out
 
 
 def run_clients(srv: ServeRuntime, clients: List[ClientSpec],

@@ -1,7 +1,8 @@
 """Seeded, scoped fault injection at the receivers' and the server's
 seams (counterpart of ziria_tpu/utils/faults.py: ``FaultSpec``,
 ``FaultPlan``, ``inject``, ``active``, ``maybe_fail``, ``corrupt_slab``
-with the ``nan_slab`` and ``truncate`` kinds, ``io_fault`` :336, and
+with the ``nan_slab``, ``truncate`` and ``channel`` kinds, ``io_fault``
+:336, and
 the injected error classes; the ``ZIRIA_CHAOS`` grammar waits for the
 CLI that reads it).
 
@@ -11,10 +12,10 @@ reference computes it, so one plan hits the same calls in both
 packages. Three seams consume it: :func:`maybe_fail` just before a
 guarded dispatch fires (``transient``, ``fatal``, ``delay``, ``hang``),
 :func:`corrupt_slab` on a pushed sample slab (``nan_slab``,
-``truncate``) and :func:`io_fault` on every payload the durability
+``truncate``, ``channel``: the slab through a named channel profile of
+``phy/profiles``) and :func:`io_fault` on every payload the durability
 layer writes (``io_torn``, ``io_enospc``). When no plan is active each
-seam costs one truthiness check. The ``channel`` kind is not ported:
-a plan naming it raises.
+seam costs one truthiness check.
 """
 
 from __future__ import annotations
@@ -32,17 +33,10 @@ import numpy as np
 _LOCK = threading.Lock()            # guards (de)activation only
 _PLANS: Tuple["FaultPlan", ...] = ()
 
-DATA_KINDS = ("nan_slab", "truncate")
+DATA_KINDS = ("nan_slab", "truncate", "channel")
 DISPATCH_KINDS = ("transient", "fatal", "delay", "hang")
 IO_KINDS = ("io_torn", "io_enospc")
 KINDS = DATA_KINDS + DISPATCH_KINDS + IO_KINDS
-
-
-def _channel_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "fault kind 'channel' is not ported yet: it needs "
-        "phy/profiles.py (ROADMAP.md queue 1, item 3, 'TX, channel and "
-        "link')")
 
 
 class InjectedFault(Exception):
@@ -65,7 +59,8 @@ class FaultSpec(NamedTuple):
     call) or ``p`` (a probability decided by a hash of (site, seed,
     call index)). ``count`` bounds the firings (0: unbounded);
     ``delay_s`` is the sleep of delay and hang; ``fraction`` the slab
-    share nan_slab and truncate touch."""
+    share nan_slab and truncate touch; ``profile`` the channel profile
+    of the channel kind (validated when the plan is built)."""
     site: str
     kind: str
     calls: Tuple[int, ...] = ()
@@ -74,6 +69,7 @@ class FaultSpec(NamedTuple):
     count: int = 0
     delay_s: float = 0.01
     fraction: float = 0.25
+    profile: str = "hostile"
 
 
 def _unit(site: str, seed: int, idx: int) -> float:
@@ -90,8 +86,6 @@ class FaultPlan:
     def __init__(self, specs, seed: int = 0):
         specs = tuple(specs)
         for sp in specs:
-            if sp.kind == "channel":
-                raise _channel_not_ported()
             if sp.kind not in KINDS:
                 raise ValueError(
                     f"unknown fault kind {sp.kind!r} (known: {KINDS})")
@@ -99,6 +93,9 @@ class FaultPlan:
                 raise ValueError(
                     f"spec {sp.site}:{sp.kind} needs exactly one of "
                     f"calls=/every=/p= to select its firing calls")
+            if sp.kind == "channel":
+                from ziria_tpu_torch.phy.profiles import get_profile
+                get_profile(sp.profile)
         self.specs = specs
         self.seed = int(seed)
         self._lock = threading.Lock()
@@ -185,11 +182,39 @@ def maybe_fail(site: str, budget_s: Optional[float] = None) -> bool:
     return False
 
 
+def _channel_slab(arr: np.ndarray, profile: str, seed: int,
+                  idx: int) -> np.ndarray:
+    """The ``channel`` kind: the slab through a named channel profile in
+    numpy (multipath FIR, SCO resample, a drift ramp from the slab's own
+    origin, and bursts drawn from a generator seeded by the plan's
+    (profile, seed, call index) hash), as the reference does."""
+    from ziria_tpu_torch.phy.profiles import get_profile, np_apply_drift, \
+        np_apply_sco, np_apply_taps, np_burst_amp, np_burst_mask
+
+    prof = get_profile(profile)
+    x = np_apply_taps(np.asarray(arr, np.float32), prof)
+    x = np_apply_sco(x, prof.sco)
+    x = np_apply_drift(x, prof.drift)
+    n = x.shape[0]
+    if prof.burst_every and n:
+        rs = np.random.default_rng(int(_unit(f"chan:{profile}", seed,
+                                             idx) * (1 << 53)))
+        off = int(rs.integers(0, prof.burst_every))
+        in_burst = np_burst_mask(n, prof, off)
+        p_sig = float(np.mean(np.square(x.astype(np.float64)))) * 2.0
+        amp = np_burst_amp(p_sig, prof)
+        x = (x + rs.normal(size=x.shape)
+             * (amp * in_burst.astype(np.float64))[:, None]) \
+            .astype(np.float32)
+    return x
+
+
 def corrupt_slab(site: str, arr: np.ndarray):
     """The data seam, on an incoming (n, 2) sample slab: ``nan_slab``
     NaN-poisons a deterministic ``fraction`` of the rows (rows drawn
     from a generator seeded by (site, seed, call index)), ``truncate``
-    drops the tail ``fraction``. Returns (slab, kinds fired)."""
+    drops the tail ``fraction``, ``channel`` passes the slab through its
+    profile (:func:`_channel_slab`). Returns (slab, kinds fired)."""
     if not _PLANS:
         return arr, ()
     kinds: List[str] = []
@@ -209,6 +234,8 @@ def corrupt_slab(site: str, arr: np.ndarray):
         elif sp.kind == "truncate" and n > 1:
             keep = max(1, n - max(1, int(n * sp.fraction)))
             arr = arr[:keep]
+        elif sp.kind == "channel" and n:
+            arr = _channel_slab(arr, sp.profile, plan.seed, idx)
         kinds.append(sp.kind)
     return arr, tuple(kinds)
 
