@@ -158,7 +158,25 @@ Phases, each printing one JSON line:
    to the decode dispatches, every frame emitted once at its true start
    and right, each stream equal to a lone ``StreamReceiver``;
    samples/s;
-11. timing: ``receive_many`` in every decode mode, the modes in turns
+11. compiler: the Ziria compiler of the port, through its CLI
+   (``python -m ziria_tpu_torch``'s ``main``, ``--platform=cuda``):
+   the 22 golden cases of ``examples/make_golden.py`` outside its
+   fixed-point and AutoLUT sets (``COMPILER_CASES``: 18 on the jit
+   backend, ``wifi_tx_full``, ``wifi_tx_rates`` and ``wifi_loopback``
+   on the interpreter, ``wifi_rx`` on the hybrid backend), each
+   output equal to its committed ``.outfile.ground`` under the port's
+   ``stream_diff`` at ``tests/test_golden.py``'s tolerances; then the
+   flagship ``examples/wifi_rx.zir`` on the hybrid backend at full
+   width, one capture per rate at 54 and 6 Mbit/s, each a 1000-byte
+   PSDU (+ FCS) from ``channel.impaired_capture``, once with the
+   default decode (the scan decoder, no kernel) and once with
+   ``--viterbi-window=1024`` (the ACS and traceback kernels, each
+   launched at least once, each held bitwise to its plain version at
+   its own inputs); the payload must come out right. Each run reports
+   the backend that ran, host ms, items in and out, do-blocks on the
+   device and on the host, device-loop iterations, host syncs,
+   viterbi_soft decodes and launches;
+12. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -265,6 +283,41 @@ SYNTH_BYTES = 12
 SYNTH_GEO = {"chunk_len": 4096, "frame_len": 1024,
              "max_frames_per_chunk": 8}
 SYNTH_SEED = 20261017
+# the compiler phase: examples/make_golden.py's CASES outside FXP_CASES
+# and AUTOLUT_CASES as (name, file mode, backend, atol), the backend and
+# tolerance tests/test_golden.py gives each (tests/
+# test_torch_compiler_golden.py holds this table to the generator's)
+COMPILER_CASES = (
+    ("scrambler", "dbg", "jit", 0.0),
+    ("fir", "dbg", "jit", 0.0),
+    ("fft64", "dbg", "jit", 1.0),
+    ("interleaver", "dbg", "jit", 0.0),
+    ("wifi_tx_bpsk", "bin", "jit", 0.0),
+    ("qam16", "dbg", "jit", 1.0),
+    ("demap_bpsk", "dbg", "jit", 0.0001),
+    ("demap_qpsk", "dbg", "jit", 0.0001),
+    ("demap_qam16", "dbg", "jit", 0.0001),
+    ("demap_qam64", "bin", "jit", 0.0001),
+    ("deinterleave_bpsk", "dbg", "jit", 0.0),
+    ("deinterleave_qam16", "dbg", "jit", 0.0),
+    ("depuncture_23", "dbg", "jit", 0.0),
+    ("depuncture_34", "bin", "jit", 0.0),
+    ("pilot_track", "dbg", "jit", 1.0),
+    ("dc_remove", "dbg", "jit", 0.0),
+    ("crc_frame", "bin", "jit", 0.0),
+    ("correlator", "dbg", "jit", 0.0),
+    ("wifi_tx_full", "bin", "interp", 1.0),
+    ("wifi_rx", "bin", "hybrid", 0.0),
+    ("wifi_tx_rates", "bin", "interp", 0.0),
+    ("wifi_loopback", "bin", "interp", 0.0),
+)
+# the full-width runs of examples/wifi_rx.zir: one capture per rate,
+# a PSDU of COMPILER_BYTES made by channel.impaired_capture (the recipe
+# of examples/make_golden.py:149-155), default decode and windowed
+COMPILER_RATES = (54, 6)
+COMPILER_BYTES = 1000
+COMPILER_SEED = 20261017
+COMPILER_WINDOW = 1024
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -1695,6 +1748,118 @@ def synth_phase(rng, dev, card):
             launches)
 
 
+def run_zir(src, infile, mode, backend, outfile, platform, extra=()):
+    """One run of the port's CLI (``python -m ziria_tpu_torch``) on a
+    file; returns (its output stream, the run's record: backend that
+    ran, host ms, items, do-blocks, device-loop iterations, syncs,
+    viterbi_soft decodes, kernel launches)."""
+    from ziria_tpu_torch.frontend import compile_file
+    from ziria_tpu_torch.runtime import cli
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream
+
+    argv = [f"--src={src}", "--input=file", f"--input-file-name={infile}",
+            f"--input-file-mode={mode}", "--output=file",
+            f"--output-file-name={outfile}", f"--output-file-mode={mode}",
+            f"--backend={backend}", f"--platform={platform}", *extra]
+    rc = cli.main(argv)
+    check(rc == 0, f"{src}: the CLI returned {rc}")
+    prog = compile_file(src)
+    got = read_stream(StreamSpec(ty=prog.out_ty, path=outfile, mode=mode))
+    run = dict(cli.LAST_RUN)
+    run["ms"] = run.pop("seconds") * 1e3
+    return got, prog.out_ty, run
+
+
+def golden_case(name, mode, backend, atol, tmpdir, platform):
+    """One golden case through the CLI, its output held to the
+    committed .outfile.ground by the port's stream_diff at `atol`.
+    Returns the run's record."""
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream
+    from ziria_tpu_torch.utils.diff import stream_diff
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(here, "examples")
+    gold = os.path.join(ex, "golden")
+    got, ty, run = run_zir(os.path.join(ex, f"{name}.zir"),
+                           os.path.join(gold, f"{name}.infile"), mode,
+                           backend, os.path.join(tmpdir, f"{name}.out"),
+                           platform)
+    want = read_stream(StreamSpec(
+        ty=ty, path=os.path.join(gold, f"{name}.outfile.ground"), mode=mode))
+    if atol:
+        rep = stream_diff(got.astype(np.float64), want.astype(np.float64),
+                          atol=atol, name=name)
+    else:
+        rep = stream_diff(got, want, name=name)
+    check(bool(rep), f"compiler golden {name}: {rep.message}")
+    return dict(run, max_abs_err=rep.max_abs_err, atol=atol)
+
+
+def compiler_phase(rng, dev, card):
+    """The compiler on the card: the 22 golden cases through the port's
+    CLI on their backends, each output equal to its ground file; then
+    examples/wifi_rx.zir at full width, one 1000-byte capture per rate
+    of COMPILER_RATES, default decode and --viterbi-window, the payload
+    right; the windowed runs' ACS and traceback launches held bitwise
+    to their plain versions at their own inputs. Launch counts zeroed
+    just before each run and read just after. Returns (the phase's
+    JSON object, the full-width runs' launches, the kernel checks)."""
+    import tempfile
+
+    import torch
+
+    from ziria_tpu_torch.ops import viterbi_cuda as vc
+    from ziria_tpu_torch.phy import channel
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, write_stream
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    platform = torch.device(dev).type
+    out = {"phase": "compiler", "card": card, "golden": {}, "full": {}}
+    launches, checks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for name, mode, backend, atol in COMPILER_CASES:
+            out["golden"][name] = golden_case(name, mode, backend, atol, tmp,
+                                              platform)
+        out["golden_s"] = time.perf_counter() - t0
+        for k, rate in enumerate(COMPILER_RATES):
+            psdu, xi = channel.impaired_capture(
+                rate, COMPILER_BYTES, COMPILER_SEED + k, floor=0.02,
+                add_fcs=True, device=dev)
+            cap = os.path.join(tmp, f"cap{rate}.bin")
+            write_stream(StreamSpec(ty="complex16", path=cap, mode="bin"), xi)
+            want = np.unpackbits(psdu, bitorder="little")
+            for how, extra in (("default", ()), ("windowed", (
+                    f"--viterbi-window={COMPILER_WINDOW}",))):
+                name = f"wifi_rx_{rate}_{how}"
+                tap = KernelTap([(vc, "acs"), (vc, "traceback")])
+                torch.cuda.synchronize()
+                with tap:
+                    got, _ty, run = run_zir(
+                        os.path.join(here, "examples", "wifi_rx.zir"), cap,
+                        "bin", "hybrid", os.path.join(tmp, f"{name}.out"),
+                        platform, extra)
+                launches[name] = dict(run["launches"])
+                check(got.shape[0] >= want.shape[0]
+                      and got.shape[0] - want.shape[0] < 8
+                      and np.array_equal(got[: want.shape[0]], want),
+                      f"compiler {name}: the payload is wrong")
+                if how == "windowed":
+                    check(launches[name].get("acs", 0) >= 1
+                          and launches[name].get("traceback", 0) >= 1,
+                          f"compiler {name}: launches {launches[name]}")
+                    checks[name] = stream_kernel_checks(torch, name, tap,
+                                                        False)
+                else:
+                    check(not launches[name],
+                          f"compiler {name}: launches {launches[name]}")
+                out["full"][name] = dict(run, rate_mbps=rate,
+                                         psdu_bytes=COMPILER_BYTES,
+                                         samples=int(xi.shape[0]))
+    out["kernels"] = checks
+    return out, launches, checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1950,7 +2115,12 @@ def main(argv=None) -> int:
     synth_line, synth_launches = synth_phase(rng, dev, card)
     emit(synth_line)
 
-    # ---- 11. timing
+    # ---- 11. the compiler
+    compiler_line, compiler_launches, compiler_checks = compiler_phase(
+        rng, dev, card)
+    emit(compiler_line)
+
+    # ---- 12. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -2242,6 +2412,10 @@ def main(argv=None) -> int:
                             if name in lc},
             "sweep_launches": sweep_launches[name],
             "synth_launches": synth_launches[name],
+            "compiler_launches": {cn: cl.get(name, 0)
+                                  for cn, cl in compiler_launches.items()},
+            "compiler_shapes": {cn: cc[name] for cn, cc in
+                                compiler_checks.items() if name in cc},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

@@ -1,0 +1,130 @@
+"""The port's CLI (``python -m ziria_tpu_torch``), torch only.
+
+Flags and subcommands of the reference's driver whose modules are not
+ported exit non-zero naming their ROADMAP item; without a card the
+driver raises unless ``--platform=cpu`` is given; a program the jit
+backend cannot lower runs on the hybrid backend after a note on stderr,
+and the driver reports the backend that ran; the Viterbi knobs are
+scoped to the invocation.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ziria_tpu_torch.runtime import cli
+from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream, \
+    write_stream
+
+# a firing whose while loop runs a data-dependent number of times: no
+# vmapped step can run it, so the jit backend refuses it
+DYNAMIC = """
+let comp main = read[int32] >>> repeat {
+  x <- take;
+  var i : int32 := 0;
+  var acc : int32 := 0;
+  do {
+    while (i < x) { acc := acc + i; i := i + 1 }
+  };
+  emit acc
+} >>> write[int32]
+"""
+
+STATIC = """
+fun incr(x: int32) : int32 { return x * 3 - 1 }
+let comp main = read[int32] >>> map incr >>> write[int32]
+"""
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _files(tmp_path, src, xs):
+    p = tmp_path / "prog.zir"
+    p.write_text(src)
+    inf = tmp_path / "in.dbg"
+    write_stream(StreamSpec(ty="int32", path=str(inf), mode="dbg"), xs)
+    return str(p), str(inf), str(tmp_path / "out.dbg")
+
+
+def _argv(src, inf, outf, *extra):
+    return [f"--src={src}", f"--input-file-name={inf}",
+            f"--output-file-name={outf}", *extra]
+
+
+@pytest.mark.parametrize("flag", sorted(cli.REFUSED_FLAGS))
+def test_refused_flag_names_its_roadmap_item(flag, capsys):
+    kind, item = cli.REFUSED_FLAGS[flag][1], cli.REFUSED_FLAGS[flag][2]
+    argv = ["--src=x.zir", flag] + ([] if kind == "store_true" else ["v"])
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{flag} is not ported yet (ROADMAP Queue 1 item {item})" in err
+
+
+@pytest.mark.parametrize("sub", sorted(cli.REFUSED_SUBCOMMANDS))
+def test_refused_subcommand_names_its_roadmap_item(sub, capsys):
+    assert cli.main([sub, "--help"]) == 2
+    item = cli.REFUSED_SUBCOMMANDS[sub]
+    assert f"`{sub}` subcommand is not ported yet (ROADMAP Queue 1 item " \
+           f"{item})" in capsys.readouterr().err
+
+
+def test_without_a_card_the_driver_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, inf, outf = _files(tmp_path, STATIC, np.arange(8, dtype=np.int32))
+    with pytest.raises(RuntimeError, match="--platform=cpu"):
+        cli.main(_argv(src, inf, outf))
+    assert not os.path.exists(outf)
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu")) == 0
+    got = read_stream(StreamSpec(ty="int32", path=outf, mode="dbg"))
+    np.testing.assert_array_equal(got, np.arange(8) * 3 - 1)
+
+
+def test_unlowerable_program_falls_back_to_hybrid(tmp_path, capsys):
+    xs = np.array([0, 3, 7, 1, 5], np.int32)
+    src, inf, outf = _files(tmp_path, DYNAMIC, xs)
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu",
+                          "--backend=jit", "--stats")) == 0
+    err = capsys.readouterr().err
+    assert "falling back to --backend=hybrid" in err
+    assert "data-dependent control flow" in err
+    assert "run: backend=hybrid" in err
+    assert cli.LAST_RUN["backend"] == "hybrid"
+    got = read_stream(StreamSpec(ty="int32", path=outf, mode="dbg"))
+    np.testing.assert_array_equal(got, [x * (x - 1) // 2 for x in xs])
+    # a lowerable program stays on jit, and --ddump-hybrid dumps a plan
+    src, inf, outf = _files(tmp_path, STATIC, xs)
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu",
+                          "--ddump-hybrid", "--stats")) == 0
+    err = capsys.readouterr().err
+    assert "hybrid plan:" in err and "plan: width=" in err
+    assert "falling back" not in err and cli.LAST_RUN["backend"] == "jit"
+
+
+def test_viterbi_knobs_are_scoped_to_the_invocation(tmp_path, monkeypatch):
+    monkeypatch.setenv("ZIRIA_VITERBI_WINDOW", "512")
+    monkeypatch.delenv("ZIRIA_VITERBI_RADIX", raising=False)
+    seen = {}
+    real = cli._run_cmd
+
+    def spy(args):
+        seen.update({k: os.environ.get(k) for k in
+                     ("ZIRIA_VITERBI_WINDOW", "ZIRIA_VITERBI_RADIX")})
+        return real(args)
+
+    monkeypatch.setattr(cli, "_run_cmd", spy)
+    src, inf, outf = _files(tmp_path, STATIC, np.arange(4, dtype=np.int32))
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu",
+                          "--viterbi-window=0", "--viterbi-radix=4")) == 0
+    assert seen == {"ZIRIA_VITERBI_WINDOW": "0", "ZIRIA_VITERBI_RADIX": "4"}
+    assert os.environ["ZIRIA_VITERBI_WINDOW"] == "512"
+    assert "ZIRIA_VITERBI_RADIX" not in os.environ

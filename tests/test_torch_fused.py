@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from ziria_tpu.ops import viterbi_pallas as jvp
 from ziria_tpu.phy.wifi import params as jparams, rx as jrx
 from ziria_tpu_torch.ops import viterbi_cuda, viterbi_fused as vf

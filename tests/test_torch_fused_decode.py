@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_fused import ALL, N_BYTES, N_SYM_B, _frames, t
 from ziria_tpu.ops import viterbi_pallas as jvp
 from ziria_tpu.phy.wifi import params as jparams, rx as jrx

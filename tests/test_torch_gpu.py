@@ -618,3 +618,36 @@ def test_link_on_card_degrades_only_for_an_injected_fault(cuda, site,
             pytest.raises(RuntimeError, match="real device failure"):
         run()
     assert not [k for k in reg.counters() if "degraded" in k]
+
+
+@pytest.mark.parametrize("name,mode,backend", [
+    ("correlator", "dbg", "jit"),
+    ("wifi_rx", "bin", "hybrid")])
+def test_compiler_golden_case_on_card(cuda, name, mode, backend, tmp_path):
+    """A jit golden case and the flagship receiver on the hybrid backend
+    through the port's CLI on the card: each output equal to its
+    committed ground file (both exact under tests/test_golden.py's
+    tolerances), on the backend asked for, the receiver's heavy
+    do-blocks on the device."""
+    import os
+
+    from ziria_tpu_torch.frontend import compile_file
+    from ziria_tpu_torch.runtime import cli
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream
+
+    ex = os.path.join(os.path.dirname(__file__), "..", "examples")
+    src = os.path.join(ex, f"{name}.zir")
+    gold = os.path.join(ex, "golden")
+    outf = str(tmp_path / "out")
+    assert cli.main([
+        f"--src={src}", f"--input-file-name={gold}/{name}.infile",
+        f"--input-file-mode={mode}", f"--output-file-name={outf}",
+        f"--output-file-mode={mode}", f"--backend={backend}"]) == 0
+    assert cli.LAST_RUN["backend"] == backend
+    ty = compile_file(src).out_ty
+    got = read_stream(StreamSpec(ty=ty, path=outf, mode=mode))
+    want = read_stream(StreamSpec(
+        ty=ty, path=f"{gold}/{name}.outfile.ground", mode=mode))
+    np.testing.assert_array_equal(got, want)
+    if backend == "hybrid":
+        assert cli.LAST_RUN["blocks_device"] > 0

@@ -8,6 +8,7 @@ test_torch_receive.py's fixture). The fused decode is held to the JAX
 
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_receive import _same_results, corpus  # noqa: F401
 from test_torch_rx import RATES
 from ziria_tpu.backend import framebatch as jfb

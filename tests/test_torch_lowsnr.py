@@ -12,6 +12,7 @@ held to the reference's same mode.
 import numpy as np
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_receive import _same_results
 from test_torch_rx import RATES, _channel
 from ziria_tpu.backend import framebatch as jfb

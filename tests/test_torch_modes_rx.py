@@ -11,6 +11,7 @@ the same radix, the reference's own contract for its fused front.
 
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_receive import _same_results, corpus  # noqa: F401
 from test_torch_rx import RATES
 from ziria_tpu.backend import framebatch as jfb

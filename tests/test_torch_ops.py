@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from ziria_tpu.ops import coding as jcoding, cplx as jcplx, crc as jcrc, \
     demap as jdemap, interleave as jinter, modulate as jmod, ofdm as jofdm, \
     scramble as jscr, sync as jsync

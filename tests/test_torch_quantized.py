@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from ziria_tpu.ops import viterbi as jviterbi, viterbi_pallas as jvp
 from ziria_tpu_torch.ops import viterbi, viterbi_cuda as vc
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_rx import N_BODY, RATES, _bad_parity_frame, _channel, close
 from ziria_tpu.ops import ofdm as jofdm
 from ziria_tpu.phy.wifi import rx as jrx

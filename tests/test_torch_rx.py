@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from ziria_tpu.backend import framebatch as jfb
 from ziria_tpu.ops import crc as jcrc
 from ziria_tpu.phy.wifi import params as jparams, rx as jrx, tx as jtx

@@ -13,6 +13,7 @@ bits and FCS status, and the stats and dispatch counts too.
 import numpy as np
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from ziria_tpu.backend import framebatch as jfb
 from ziria_tpu.phy import link
 from ziria_tpu.utils import dispatch as jdispatch

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_stream import FRAME_LEN, GEO, K, RATES, both, payloads, \
     same_frames
 from ziria_tpu.ops import sync as jsync

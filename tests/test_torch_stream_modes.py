@@ -13,6 +13,7 @@ decode, the scan, a chunk's read or a per-capture window raises.
 
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_stream import FRAME_LEN, GEO, RATES, payloads, same_frames
 from test_torch_stream_state import PORT, REF, _contained, _run
 from ziria_tpu.backend import framebatch as jfb

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from test_torch_receive import _same_results, corpus  # noqa: F401
 from test_torch_stream import FRAME_LEN, GEO, RATES, payloads, same_frames
 from ziria_tpu.backend import framebatch as jfb

@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import torch
 
+from test_torch_fleet import one_thread  # noqa: F401 - autouse fixture
 from ziria_tpu.ops import coding as jcoding, viterbi as jviterbi, \
     viterbi_pallas as jvp
 from ziria_tpu_torch.ops import viterbi, viterbi_cuda as vc
