@@ -160,12 +160,16 @@ Phases, each printing one JSON line:
    samples/s;
 11. compiler: the Ziria compiler of the port, through its CLI
    (``python -m ziria_tpu_torch``'s ``main``, ``--platform=cuda``):
-   the 22 golden cases of ``examples/make_golden.py`` outside its
-   fixed-point and AutoLUT sets (``COMPILER_CASES``: 18 on the jit
-   backend, ``wifi_tx_full``, ``wifi_tx_rates`` and ``wifi_loopback``
-   on the interpreter, ``wifi_rx`` on the hybrid backend), each
-   output equal to its committed ``.outfile.ground`` under the port's
-   ``stream_diff`` at ``tests/test_golden.py``'s tolerances; then the
+   the 28 golden cases of ``examples/make_golden.py``
+   (``COMPILER_CASES``: 22 on the jit backend, ``wifi_tx_full``,
+   ``wifi_tx_rates``, ``wifi_loopback`` and ``wifi_loopback_fxp`` on
+   the interpreter, ``wifi_rx`` and ``wifi_rx_fxp`` on the hybrid
+   backend; the four fixed-point cases under ``--fxp-complex16``, the
+   two AutoLUT cases under ``--autolut``), each output equal to its
+   committed ``.outfile.ground`` under the port's ``stream_diff`` at
+   ``tests/test_golden.py``'s tolerances; a ``--state-out`` /
+   ``--state-in`` round trip of ``scrambler.zir`` equal to its one-shot
+   run; then the
    flagship ``examples/wifi_rx.zir`` on the hybrid backend at full
    width, one capture per rate at 54 and 6 Mbit/s, each a 1000-byte
    PSDU (+ FCS) from ``channel.impaired_capture``, once with the
@@ -176,7 +180,24 @@ Phases, each printing one JSON line:
    the backend that ran, host ms, items in and out, do-blocks on the
    device and on the host, device-loop iterations, host syncs,
    viterbi_soft decodes and launches;
-12. timing: ``receive_many`` in every decode mode, the modes in turns
+12. fxp: the fixed-point path. Every ``ops/fxp`` primitive (the
+   float64 DFT products included) and ``ext_math`` function on the card
+   bitwise equal to the CPU; ``rx_fxp.decode_data_batch_fxp`` on 128
+   frames at the reference benchmark's fxp stage geometry (a 1000-byte
+   PSDU at 54 Mbit/s, frame_len 400 + 80 * 38; lane 0 its frame, the
+   rest random PSDUs at 30 dB), exact and with ``viterbi_window=1024``,
+   each run with the launch counts zeroed just before it and read just
+   after (one ACS and one traceback launch): all 128 PSDUs right, the
+   two runs equal, 4 lanes equal to the CPU's decode, the ACS and
+   traceback kernels bitwise equal to their plain versions at the run's
+   own inputs; ``rx.receive(fxp=True)`` on an impaired 1000-byte
+   capture at 54 and at 6 Mbit/s (the scan decoder, no launch), right
+   with a good FCS; ``transceiver.run_link`` of two short payloads
+   between two stations, fxp off and on: delivered, ACKed, no retry.
+   Times: batch ms (host clock, 3 reps), samples/s as ``bench.py``'s
+   ``sps`` (128 * frame_len / batch seconds), CUDA-event ms of the
+   front and of the decode, peak device memory;
+13. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -283,33 +304,40 @@ SYNTH_BYTES = 12
 SYNTH_GEO = {"chunk_len": 4096, "frame_len": 1024,
              "max_frames_per_chunk": 8}
 SYNTH_SEED = 20261017
-# the compiler phase: examples/make_golden.py's CASES outside FXP_CASES
-# and AUTOLUT_CASES as (name, file mode, backend, atol), the backend and
-# tolerance tests/test_golden.py gives each (tests/
-# test_torch_compiler_golden.py holds this table to the generator's)
+# the compiler phase: examples/make_golden.py's CASES as (name, file
+# mode, backend, atol, CLI flags), the backend, tolerance and flags
+# tests/test_golden.py gives each (--fxp-complex16 for FXP_CASES,
+# --autolut for AUTOLUT_CASES; tests/test_torch_compiler_golden.py holds
+# this table to the generator's)
 COMPILER_CASES = (
-    ("scrambler", "dbg", "jit", 0.0),
-    ("fir", "dbg", "jit", 0.0),
-    ("fft64", "dbg", "jit", 1.0),
-    ("interleaver", "dbg", "jit", 0.0),
-    ("wifi_tx_bpsk", "bin", "jit", 0.0),
-    ("qam16", "dbg", "jit", 1.0),
-    ("demap_bpsk", "dbg", "jit", 0.0001),
-    ("demap_qpsk", "dbg", "jit", 0.0001),
-    ("demap_qam16", "dbg", "jit", 0.0001),
-    ("demap_qam64", "bin", "jit", 0.0001),
-    ("deinterleave_bpsk", "dbg", "jit", 0.0),
-    ("deinterleave_qam16", "dbg", "jit", 0.0),
-    ("depuncture_23", "dbg", "jit", 0.0),
-    ("depuncture_34", "bin", "jit", 0.0),
-    ("pilot_track", "dbg", "jit", 1.0),
-    ("dc_remove", "dbg", "jit", 0.0),
-    ("crc_frame", "bin", "jit", 0.0),
-    ("correlator", "dbg", "jit", 0.0),
-    ("wifi_tx_full", "bin", "interp", 1.0),
-    ("wifi_rx", "bin", "hybrid", 0.0),
-    ("wifi_tx_rates", "bin", "interp", 0.0),
-    ("wifi_loopback", "bin", "interp", 0.0),
+    ("scrambler", "dbg", "jit", 0.0, ()),
+    ("fir", "dbg", "jit", 0.0, ()),
+    ("fft64", "dbg", "jit", 1.0, ()),
+    ("interleaver", "dbg", "jit", 0.0, ()),
+    ("wifi_tx_bpsk", "bin", "jit", 0.0, ()),
+    ("lut_map", "dbg", "jit", 0.0, ("--autolut",)),
+    ("qam16", "dbg", "jit", 1.0, ()),
+    ("demap_bpsk", "dbg", "jit", 0.0001, ()),
+    ("demap_qpsk", "dbg", "jit", 0.0001, ()),
+    ("demap_qam16", "dbg", "jit", 0.0001, ()),
+    ("demap_qam64", "bin", "jit", 0.0001, ()),
+    ("deinterleave_bpsk", "dbg", "jit", 0.0, ()),
+    ("deinterleave_qam16", "dbg", "jit", 0.0, ()),
+    ("depuncture_23", "dbg", "jit", 0.0, ()),
+    ("depuncture_34", "bin", "jit", 0.0, ()),
+    ("pilot_track", "dbg", "jit", 1.0, ()),
+    ("dc_remove", "dbg", "jit", 0.0, ()),
+    ("crc_frame", "bin", "jit", 0.0, ()),
+    ("correlator", "dbg", "jit", 0.0, ()),
+    ("tx_qpsk_fxp", "bin", "jit", 0.0, ("--fxp-complex16",)),
+    ("fm_demod", "dbg", "jit", 0.0, ("--fxp-complex16",)),
+    ("wifi_tx_full", "bin", "interp", 1.0, ()),
+    ("pack_bits", "dbg", "jit", 0.0, ("--autolut",)),
+    ("wifi_rx", "bin", "hybrid", 0.0, ()),
+    ("wifi_rx_fxp", "bin", "hybrid", 0.0, ("--fxp-complex16",)),
+    ("wifi_tx_rates", "bin", "interp", 0.0, ()),
+    ("wifi_loopback", "bin", "interp", 0.0, ()),
+    ("wifi_loopback_fxp", "bin", "interp", 0.0, ("--fxp-complex16",)),
 )
 # the full-width runs of examples/wifi_rx.zir: one capture per rate,
 # a PSDU of COMPILER_BYTES made by channel.impaired_capture (the recipe
@@ -318,6 +346,22 @@ COMPILER_RATES = (54, 6)
 COMPILER_BYTES = 1000
 COMPILER_SEED = 20261017
 COMPILER_WINDOW = 1024
+# the compiler phase's --state-out/--state-in round trip (scrambler.zir)
+STATE_BITS = 4096
+STATE_SPLIT = 1500
+# the fixed-point phase at the geometry of the reference benchmark's
+# fxp_interior stage (bench.py: _setup and _fxp_stage): FXP_B frames of
+# a 1000-byte PSDU at 54 Mbit/s, lane 0 the benchmark's own frame
+# (default_rng(0)'s bytes, clean), the others random PSDUs under AWGN
+FXP_B = 128
+FXP_BYTES = 1000
+FXP_MBPS = 54
+FXP_SNR_DB = 30.0
+FXP_WINDOW = 1024
+FXP_CPU_LANES = 4        # lanes also decoded on the CPU, held bitwise
+FXP_RECEIVE = (54, 6)    # rx.receive(fxp=True) captures: one per rate
+FXP_LINK = (b"fixed-point frame one", b"and two")
+FXP_SEED = 20261018
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores (integer adds are
 # counted at the same rate)
@@ -1673,6 +1717,226 @@ def sweep_phase(rng, dev, card):
             launches)
 
 
+def fxp_primitive_checks(rng, dev):
+    """Every ops/fxp primitive and ext_math function on the card against
+    the same call on the CPU (the ext_math functions against their
+    numpy path, the interpreter's): bitwise, at random values, the
+    int16 rails and int32 edges, and for quantize_q at NaN, +-inf and
+    +-1e9. Returns {function: elements compared}."""
+    import torch
+
+    from ziria_tpu_torch.ops import ext_math, fxp
+
+    i32 = rng.integers(-2 ** 31, 2 ** 31, 4096, dtype=np.int64) \
+        .astype(np.int32)
+    i32[:4] = [-2 ** 31, 2 ** 31 - 1, 0, -1]
+    big = rng.integers(-2 ** 28, 2 ** 28, (2, 4096)).astype(np.int32)
+    big[:, :3] = [[0, 0, 5], [0, -3, 0]]
+    flt = np.concatenate([rng.normal(0, 8, 4096),
+                          [np.nan, np.inf, -np.inf, 1e9, -1e9, 15.9995,
+                           -16.0005, 0.0]]).astype(np.float32)
+    pairs = rng.integers(-2 ** 15, 2 ** 15, (256, 64, 2)).astype(np.int32)
+    pairs[:2] = np.where(rng.integers(0, 2, (2, 64, 2)) > 0, 32767,
+                         -32768)
+    pairs[2], pairs[3] = -32768, 32767
+    conj = rng.integers(-2 ** 15, 2 ** 15, (256, 64, 2)).astype(np.int32)
+    rot = rng.integers(-2 ** 16, 2 ** 16, (4096, 2)).astype(np.int32)
+    ang = rng.integers(-32768, 32768, 4096).astype(np.int32)
+    i16 = rng.integers(-32768, 32768, (2, 4096)).astype(np.int16)
+    i16[:, :2] = [[-32768, 32767], [0, -32768]]
+    c64 = (pairs[..., 0] + 1j * pairs[..., 1]).astype(np.complex64)
+    (rh, rl), _im = fxp._TW64
+    cases = {
+        "rsra": (lambda x: torch.stack([fxp.rsra(x, s)
+                                        for s in (0, 1, 7, 10)]), [i32]),
+        "sat16": (fxp.sat16, [i32]),
+        "quantize_q": (lambda x: torch.stack(
+            [fxp.quantize_q(x, q) for q in (0, 11, 15)]), [flt]),
+        "cordic_atan2": (lambda y, x: torch.stack(fxp.cordic_atan2(y, x)),
+                         list(big)),
+        "cordic_rotate": (lambda p, a: torch.stack(
+            [fxp.cordic_rotate(p, a, k) for k in (15, 10)]), [rot, ang]),
+        "_gemm_q14": (lambda x: fxp._gemm_q14(x, rh, rl), [pairs[..., 0]]),
+        "dft64_q14": (lambda p: torch.stack(
+            [fxp.dft64_q14(p, s) for s in (0, 7, 10)]), [pairs]),
+        "idft64_wifi_q14": (fxp.idft64_wifi_q14, [pairs]),
+        "cmul_conj_i32": (lambda a, b: fxp.cmul_conj_i32(a, b, 4),
+                          [pairs, conj]),
+        "cabs2_i32": (lambda p: fxp.cabs2_i32(p, 4), [pairs]),
+        "isqrt_u32": (fxp.isqrt_u32, [np.abs(i32[4:]).astype(np.int32)]),
+    }
+    out = {}
+    for name, (fn, arrs) in cases.items():
+        got = fn(*[torch.from_numpy(a).to(dev) for a in arrs])
+        want = fn(*[torch.from_numpy(a) for a in arrs])
+        check(got.device.type == dev.type and got.dtype == want.dtype
+              and torch.equal(got.cpu(), want),
+              f"fxp {name}: the card differs from the CPU")
+        out[name] = int(want.numel())
+    ext = {"sin_int16": [i16[0]], "cos_int16": [i16[0]],
+           "atan2_int16": list(i16), "usqrt": [i32], "ulog2": [i32],
+           "dft64_fxp": [c64], "idft64_fxp": [c64]}
+    for name, arrs in ext.items():
+        fn = getattr(ext_math, name)
+        got = fn(*[torch.from_numpy(a).to(dev) for a in arrs])
+        want = fn(*arrs)
+        check(got.device.type == dev.type
+              and np.array_equal(got.cpu().numpy(), want)
+              and got.cpu().numpy().dtype == want.dtype,
+              f"ext_math {name}: the card differs from the numpy path")
+        out[name] = int(want.size)
+    return out
+
+
+def fxp_frames(rng, dev):
+    """FXP_B frames at the benchmark stage's geometry: (float32 frames
+    on the card, PSDU bits (B, 8 * FXP_BYTES), rate, n_sym)."""
+    import torch
+
+    from ziria_tpu_torch.phy.wifi import tx
+    from ziria_tpu_torch.phy.wifi.params import RATES, n_symbols
+
+    rate = RATES[FXP_MBPS]
+    n_sym = n_symbols(FXP_BYTES, rate)
+    psdus = rng.integers(0, 256, (FXP_B, FXP_BYTES)).astype(np.uint8)
+    psdus[0] = np.random.default_rng(0).integers(0, 256, FXP_BYTES)
+    frames = tx.encode_batch(psdus, FXP_MBPS, device=dev).cpu().numpy()
+    sigma = np.sqrt(10 ** (-FXP_SNR_DB / 10) / 2)
+    frames[1:] += (sigma * rng.normal(size=frames[1:].shape)) \
+        .astype(np.float32)
+    check(frames.shape[1] == 400 + 80 * n_sym, "fxp frame length")
+    bits = np.unpackbits(psdus, axis=1, bitorder="little")
+    return torch.from_numpy(frames).to(dev), bits, rate, n_sym
+
+
+def fxp_phase(rng, dev, card):
+    """The fixed-point path on the card: the primitives bitwise against
+    the CPU; decode_data_batch_fxp on FXP_B benchmark-geometry frames,
+    exact and windowed, each run with the launch counts zeroed just
+    before it and read just after (one ACS and one traceback launch),
+    every PSDU right, the kernels held bitwise to their plain versions
+    at the run's own inputs, FXP_CPU_LANES lanes equal to the CPU's
+    decode; rx.receive(fxp=True) on one impaired 1000-byte capture per
+    rate of FXP_RECEIVE (the scan decoder: no launch); run_link of
+    FXP_LINK between two stations, fxp off and on. Times: batch ms on
+    the host clock and samples/s as bench.py's sps (FXP_B * frame_len
+    / batch seconds), CUDA-event ms of the front and the decode, peak
+    device memory. Returns (the phase's JSON object, launches by run,
+    the kernel checks)."""
+    import torch
+
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.phy import channel
+    from ziria_tpu_torch.phy.wifi import rx, rx_fxp, transceiver as trx
+
+    out = {"phase": "fxp", "card": card,
+           "primitives_bitwise": fxp_primitive_checks(rng, dev)}
+    frames, want, rate, n_sym = fxp_frames(rng, dev)
+    frame_len = int(frames.shape[1])
+    fq = rx_fxp.quantize_frame(frames)
+    check(torch.equal(fq.cpu(), rx_fxp.quantize_frame(frames.cpu())),
+          "fxp quantize_frame: the card differs from the CPU")
+    nbits = 8 * FXP_BYTES
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        vc.reset_launches()
+        vf.reset_launches()
+        res, ms = host_ms(fn)
+        launches = {k: v for k, v in {**vc.LAUNCHES, **vf.LAUNCHES}.items()
+                    if v}
+        return res, launches, ms, torch.cuda.max_memory_allocated(dev)
+
+    runs, launches, checks, first = {}, {}, {}, None
+    for name, window in (("fxp_batch", None),
+                         ("fxp_batch_window", FXP_WINDOW)):
+        tap = KernelTap([(vc, "acs"), (vc, "traceback")])
+        with tap:
+            (psdu, _svc), launches[name], ms, peak = counted(
+                lambda w=window: rx_fxp.decode_data_batch_fxp(
+                    fq, rate, n_sym, nbits, viterbi_window=w))
+        check(launches[name] == {"acs": 1, "traceback": 1},
+              f"{name}: launches {launches[name]}")
+        got = psdu.cpu().numpy()
+        bad = [i for i in range(FXP_B) if not np.array_equal(got[i],
+                                                             want[i])]
+        check(not bad, f"{name}: lanes decoded wrongly: {bad}")
+        if first is None:
+            first = got
+        check(np.array_equal(got, first), f"{name} differs from exact")
+        checks[name] = stream_kernel_checks(torch, name, tap, False)
+        cpu_bits, _s = rx_fxp.decode_data_batch_fxp(
+            fq[:FXP_CPU_LANES].cpu(), rate, n_sym, nbits,
+            viterbi_window=window)
+        check(np.array_equal(cpu_bits.numpy(), got[:FXP_CPU_LANES]),
+              f"{name}: the card differs from the CPU")
+        runs[name] = dict(first_call_ms=ms, peak_mem_bytes=peak,
+                          launches=launches[name], window=window,
+                          frames_right=FXP_B,
+                          cpu_lanes_bitwise=FXP_CPU_LANES)
+
+    # times: the whole batch on the host clock, then its two steps under
+    # CUDA events
+    reps = 3
+    dep = rx_fxp._front_batch(fq, rate, n_sym).to(torch.float32)
+    for name, window in (("fxp_batch", None),
+                         ("fxp_batch_window", FXP_WINDOW)):
+        ms = 0.0
+        for _ in range(reps):
+            _r, t = host_ms(lambda w=window: rx_fxp.decode_data_batch_fxp(
+                fq, rate, n_sym, nbits, viterbi_window=w))
+            ms += t / reps
+        runs[name].update(
+            batch_ms=ms, samples_per_s=FXP_B * frame_len / ms * 1e3,
+            frames_per_s=FXP_B / ms * 1e3,
+            front_ms=cuda_ms(lambda: rx_fxp._front_batch(fq, rate, n_sym),
+                             reps=reps),
+            decode_ms=cuda_ms(lambda w=window: vc.viterbi_decode_batch_opt(
+                dep, n_bits=n_sym * rate.n_dbps, window=w), reps=reps))
+    out.update(frames=FXP_B, psdu_bytes=FXP_BYTES, rate_mbps=FXP_MBPS,
+               n_sym=n_sym, frame_len=frame_len, snr_db=FXP_SNR_DB,
+               reps=reps, batch=runs)
+
+    recv = {}
+    for k, mbps in enumerate(FXP_RECEIVE):
+        psdu, xi = channel.impaired_capture(mbps, FXP_BYTES, FXP_SEED + k,
+                                            add_fcs=True, device=dev)
+        res, lc, ms, _peak = counted(lambda: rx.receive(
+            np.asarray(xi, np.float32), check_fcs=True, fxp=True,
+            device=dev))
+        name = f"fxp_receive_{mbps}"
+        launches[name] = lc
+        bits = np.unpackbits(np.asarray(psdu, np.uint8), bitorder="little")
+        check(res.ok and res.rate_mbps == mbps and res.crc_ok is True
+              and np.array_equal(res.psdu_bits[: bits.size], bits),
+              f"{name}: decoded wrongly")
+        check(not lc, f"{name}: launches {lc} (the scan decoder)")
+        recv[name] = dict(ms=ms, samples=int(xi.shape[0]),
+                          length_bytes=res.length_bytes)
+    out["receive"] = recv
+
+    link = {}
+    for fx in (False, True):
+        a = trx.Station(addr=1, rate_mbps=24, fxp=fx, device=dev)
+        b = trx.Station(addr=2, fxp=fx, device=dev)
+        name = "fxp_link" if fx else "float_link"
+        _r, launches[name], ms, _peak = counted(
+            lambda a=a, b=b: trx.run_link(a, b, list(FXP_LINK)))
+        check([p for _s, p in b.delivered] == list(FXP_LINK)
+              and a.acked == list(range(len(FXP_LINK))) and not a.failed
+              and a.counters["retries"] == 0 and b.counters["dups"] == 0,
+              f"{name}: delivered {b.delivered}, acked {a.acked}, "
+              f"counters {a.counters}")
+        check(not launches[name], f"{name}: launches {launches[name]}")
+        link[name] = dict(ms=ms, delivered=len(b.delivered),
+                          acked=len(a.acked), counters_a=a.counters,
+                          counters_b=b.counters)
+    out["link"] = link
+    out["kernels"] = checks
+    return out, launches, checks
+
+
 def synth_phase(rng, dev, card):
     """serve.synth_load's streams through receive_streams on the card
     at SYNTH_GEO, launch counts zeroed just before and read just after;
@@ -1763,15 +2027,16 @@ def run_zir(src, infile, mode, backend, outfile, platform, extra=()):
             f"--backend={backend}", f"--platform={platform}", *extra]
     rc = cli.main(argv)
     check(rc == 0, f"{src}: the CLI returned {rc}")
-    prog = compile_file(src)
+    prog = compile_file(src, fxp_complex16="--fxp-complex16" in extra)
     got = read_stream(StreamSpec(ty=prog.out_ty, path=outfile, mode=mode))
     run = dict(cli.LAST_RUN)
     run["ms"] = run.pop("seconds") * 1e3
     return got, prog.out_ty, run
 
 
-def golden_case(name, mode, backend, atol, tmpdir, platform):
-    """One golden case through the CLI, its output held to the
+def golden_case(name, mode, backend, atol, flags, tmpdir, platform):
+    """One golden case through the CLI with the case's `flags`
+    (``--fxp-complex16``, ``--autolut``), its output held to the
     committed .outfile.ground by the port's stream_diff at `atol`.
     Returns the run's record."""
     from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream
@@ -1783,7 +2048,7 @@ def golden_case(name, mode, backend, atol, tmpdir, platform):
     got, ty, run = run_zir(os.path.join(ex, f"{name}.zir"),
                            os.path.join(gold, f"{name}.infile"), mode,
                            backend, os.path.join(tmpdir, f"{name}.out"),
-                           platform)
+                           platform, flags)
     want = read_stream(StreamSpec(
         ty=ty, path=os.path.join(gold, f"{name}.outfile.ground"), mode=mode))
     if atol:
@@ -1795,9 +2060,42 @@ def golden_case(name, mode, backend, atol, tmpdir, platform):
     return dict(run, max_abs_err=rep.max_abs_err, atol=atol)
 
 
+def state_roundtrip(rng, tmpdir, platform):
+    """examples/scrambler.zir (a stateful jit pipeline) on STATE_BITS
+    random bits through the CLI once in one shot, then split at
+    STATE_SPLIT: the first part with --state-out, the rest with
+    --state-in from that checkpoint. The two parts' outputs, joined,
+    must equal the one-shot output. Returns the three runs' ms."""
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, write_stream
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, "examples", "scrambler.zir")
+    xs = rng.integers(0, 2, STATE_BITS).astype(np.uint8)
+    ck = os.path.join(tmpdir, "state.npz")
+    outs, ms = [], {}
+    for tag, part, extra in (("one_shot", xs, ()),
+                             ("first", xs[:STATE_SPLIT],
+                              (f"--state-out={ck}",)),
+                             ("rest", xs[STATE_SPLIT:],
+                              (f"--state-in={ck}",))):
+        inf = os.path.join(tmpdir, f"state_{tag}.in")
+        write_stream(StreamSpec(ty="bit", path=inf), part)
+        got, _ty, run = run_zir(src, inf, "dbg", "jit",
+                                os.path.join(tmpdir, f"state_{tag}.out"),
+                                platform, extra)
+        check(run["backend"] == "jit", f"state {tag}: ran {run['backend']}")
+        outs.append(got)
+        ms[tag] = run["ms"]
+    check(np.array_equal(np.concatenate(outs[1:]), outs[0]),
+          "--state-out/--state-in: the split run differs from one shot")
+    return dict(bits=STATE_BITS, split=STATE_SPLIT, ms=ms,
+                equal_to_one_shot=True)
+
+
 def compiler_phase(rng, dev, card):
-    """The compiler on the card: the 22 golden cases through the port's
-    CLI on their backends, each output equal to its ground file; then
+    """The compiler on the card: the 28 golden cases through the port's
+    CLI on their backends and flags, each output equal to its ground
+    file; a --state-out/--state-in round trip (state_roundtrip); then
     examples/wifi_rx.zir at full width, one 1000-byte capture per rate
     of COMPILER_RATES, default decode and --viterbi-window, the payload
     right; the windowed runs' ACS and traceback launches held bitwise
@@ -1818,10 +2116,11 @@ def compiler_phase(rng, dev, card):
     launches, checks = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        for name, mode, backend, atol in COMPILER_CASES:
-            out["golden"][name] = golden_case(name, mode, backend, atol, tmp,
-                                              platform)
+        for name, mode, backend, atol, flags in COMPILER_CASES:
+            out["golden"][name] = golden_case(name, mode, backend, atol,
+                                              flags, tmp, platform)
         out["golden_s"] = time.perf_counter() - t0
+        out["state_roundtrip"] = state_roundtrip(rng, tmp, platform)
         for k, rate in enumerate(COMPILER_RATES):
             psdu, xi = channel.impaired_capture(
                 rate, COMPILER_BYTES, COMPILER_SEED + k, floor=0.02,
@@ -2120,7 +2419,11 @@ def main(argv=None) -> int:
         rng, dev, card)
     emit(compiler_line)
 
-    # ---- 12. timing
+    # ---- 12. the fixed-point path
+    fxp_line, fxp_launches, fxp_checks = fxp_phase(rng, dev, card)
+    emit(fxp_line)
+
+    # ---- 13. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -2416,6 +2719,10 @@ def main(argv=None) -> int:
                                   for cn, cl in compiler_launches.items()},
             "compiler_shapes": {cn: cc[name] for cn, cc in
                                 compiler_checks.items() if name in cc},
+            "fxp_launches": {xn: xl.get(name, 0)
+                             for xn, xl in fxp_launches.items()},
+            "fxp_shapes": {xn: xc[name] for xn, xc in fxp_checks.items()
+                           if name in xc},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

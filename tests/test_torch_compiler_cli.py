@@ -1,7 +1,9 @@
 """The port's CLI (``python -m ziria_tpu_torch``), torch only.
 
 Flags and subcommands of the reference's driver whose modules are not
-ported exit non-zero naming their ROADMAP item; without a card the
+ported exit non-zero naming their ROADMAP item (``--scan`` and the
+``--batch-*`` files name item 6b); ``--autolut``, ``--fxp-complex16``
+and ``--state-in``/``--state-out`` run; without a card the
 driver raises unless ``--platform=cpu`` is given; a program the jit
 backend cannot lower runs on the hybrid backend after a note on stderr,
 and the driver reports the backend that ran; the Viterbi knobs are
@@ -68,6 +70,43 @@ def test_refused_flag_names_its_roadmap_item(flag, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag} is not ported yet (ROADMAP Queue 1 item {item})" in err
+
+
+def test_scan_and_batch_files_name_item_6b(capsys):
+    """They run framebatch.run_many and the chunked state machines,
+    which item 6b ports."""
+    for flag in ("--scan", "--batch-input-files", "--batch-output-files"):
+        assert cli.REFUSED_FLAGS[flag][2] == "6b"
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--src=x.zir", "--scan"])
+    assert e.value.code == 2
+    assert "--scan is not ported yet (ROADMAP Queue 1 item 6b)" in \
+        capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--autolut", "--fxp-complex16",
+                                  "--state-in", "--state-out"])
+def test_ported_flag_runs(flag, tmp_path):
+    """The flags this driver once refused run a program: the output is
+    the program's; --state-in resumes a --state-out checkpoint, and on
+    the interpreter the --state-* flags exit naming the jit backend."""
+    src, inf, outf = _files(tmp_path, STATIC, np.arange(8, dtype=np.int32))
+    ck = str(tmp_path / "state.npz")
+    extra = [flag] if not flag.startswith("--state") else [f"{flag}={ck}"]
+    if flag == "--state-in":
+        assert cli.main(_argv(src, inf, outf, "--platform=cpu",
+                              f"--state-out={ck}")) == 0
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu", *extra)) == 0
+    assert cli.LAST_RUN["backend"] == "jit"
+    got = read_stream(StreamSpec(ty="int32", path=outf, mode="dbg"))
+    np.testing.assert_array_equal(got, np.arange(8) * 3 - 1)
+    assert getattr(cli.build_parser().parse_args(["--src=x.zir", *extra]),
+                   flag[2:].replace("-", "_"))
+    if flag.startswith("--state"):
+        assert os.path.exists(ck)
+        with pytest.raises(SystemExit, match="need --backend=jit"):
+            cli.main(_argv(src, inf, outf, "--platform=cpu",
+                           "--backend=interp", *extra))
 
 
 @pytest.mark.parametrize("sub", sorted(cli.REFUSED_SUBCOMMANDS))

@@ -651,3 +651,42 @@ def test_compiler_golden_case_on_card(cuda, name, mode, backend, tmp_path):
     np.testing.assert_array_equal(got, want)
     if backend == "hybrid":
         assert cli.LAST_RUN["blocks_device"] > 0
+
+
+def test_fxp_primitives_on_card_equal_cpu(cuda):
+    """Every ops/fxp primitive (the float64 DFT products included) and
+    ext_math function on the card, bitwise equal to the CPU's."""
+    from chip_smoke import fxp_primitive_checks
+
+    done = fxp_primitive_checks(np.random.default_rng(11), cuda)
+    assert "dft64_q14" in done and "atan2_int16" in done
+
+
+@pytest.mark.parametrize("window", [None, 1024])
+def test_fxp_batch_decode_on_card_equals_cpu(cuda, window):
+    """decode_data_batch_fxp on the card: one ACS and one traceback
+    launch, every PSDU right and the bits equal to the CPU's decode of
+    the same quantized frames (exact and windowed)."""
+    from ziria_tpu_torch.phy.wifi import rx_fxp
+
+    rng = np.random.default_rng(12)
+    rate = params.RATES[54]
+    n_bytes = 300
+    n_sym = params.n_symbols(n_bytes, rate)
+    psdus = rng.integers(0, 256, (16, n_bytes)).astype(np.uint8)
+    frames = tx.encode_batch(psdus, 54, device="cpu")
+    frames = frames + 0.02 * torch.from_numpy(
+        rng.normal(size=tuple(frames.shape)).astype(np.float32))
+    fq = rx_fxp.quantize_frame(frames)
+    vc.reset_launches()
+    got, svc = rx_fxp.decode_data_batch_fxp(fq.to(cuda), rate, n_sym,
+                                            8 * n_bytes,
+                                            viterbi_window=window)
+    torch.cuda.synchronize()
+    assert vc.LAUNCHES == _only(vc, acs=1, traceback=1)
+    want, want_svc = rx_fxp.decode_data_batch_fxp(fq, rate, n_sym,
+                                                  8 * n_bytes,
+                                                  viterbi_window=window)
+    assert torch.equal(got.cpu(), want) and torch.equal(svc.cpu(), want_svc)
+    np.testing.assert_array_equal(
+        want.numpy(), np.unpackbits(psdus, axis=1, bitorder="little"))

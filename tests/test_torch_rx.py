@@ -258,19 +258,14 @@ def test_crc_many_matches_reference(corpus):
     pytest.param("receive", {"geometry": geometry.Geometry(
         viterbi_metric="int16")}, id="receive-geometry")])
 def test_unported_knobs_raise(corpus, entry, kwargs):
-    """``fxp`` still raises, naming the ROADMAP item that ports it. The
-    decode modes of the other cases run now, a ``geometry`` object's
-    knobs too: each is held against the port itself on the corpus,
-    with no JAX call (test_torch_modes*.py hold them against the
-    reference, test_torch_stream_state.py the geometry). Radix 4 equals
-    radix 2 field for field; a window and an int16 metric decode every
-    lane to the default's payload."""
-    if "fxp" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rx.receive(np.zeros((600, 2), np.float32), device="cpu",
-                       **kwargs)
-        return
-
+    """Every knob once refused runs now, ``fxp`` too (the fixed-point
+    interior, held to the JAX one in test_torch_rx_fxp.py), a
+    ``geometry`` object's knobs too: each is held against the port
+    itself on the corpus, with no JAX call (test_torch_modes*.py hold
+    them against the reference, test_torch_stream_state.py the
+    geometry). Radix 4 equals radix 2 field for field; a window, an
+    int16 metric and the fixed-point interior decode every lane to the
+    default's payload."""
     def run(**kw):
         if entry == "receive_many":
             return framebatch.receive_many(corpus[0], check_fcs=True,

@@ -53,3 +53,4 @@ from ziria_tpu_torch.core.types import (  # noqa: F401,E402
     typecheck,
 )
 from ziria_tpu_torch.core.opt import fold, fold_with_stats  # noqa: F401,E402
+from ziria_tpu_torch.core.autolut import autolut  # noqa: F401,E402

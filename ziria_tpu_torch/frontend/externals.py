@@ -377,10 +377,13 @@ def register_external(name: str, fn: Callable) -> None:
 def resolve_ext(name: str) -> Callable:
     fn = EXTERNALS.get(name)
     if fn is None:
+        # the fixed-point math library self-registers on import
+        import ziria_tpu_torch.ops.ext_math  # noqa: F401
+        fn = EXTERNALS.get(name)
+    if fn is None:
         known = ", ".join(sorted(EXTERNALS))
         raise KeyError(
             f"ext fun {name!r} is not in the externals registry "
-            f"(known: {known}; the fixed-point library ops/ext_math.py "
-            f"is ROADMAP Queue 1 item 7); register it with "
+            f"(known: {known}); register it with "
             f"ziria_tpu_torch.frontend.externals.register_external")
     return fn

@@ -31,7 +31,7 @@ Two consumers:
   node when `f` is inferred LUT-able, generalizing `Map.in_domain`
   (which remains the scalar-index fast path) to packed multi-bit
   items such as `arr[8] bit`; `core/autolut.py` performs the rewrite
-  (not ported yet: the port's CLI refuses ``--autolut``).
+  (CLI ``--autolut``).
 - the staged evaluator's expression-call path (`eval._eval_call`)
   rewrites calls with traced arguments into table gathers when the
   program is compiled with ``autolut=True`` (CLI ``--autolut``).
@@ -45,11 +45,8 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from ziria_tpu_torch.core.autolut import MAX_TABLE_ITEMS
 from ziria_tpu_torch.frontend import ast as A
-
-# output items a synthesized table may hold (core/autolut.py's cap in
-# the reference, which is not ported)
-MAX_TABLE_ITEMS = 1 << 22
 
 # synthesis caps: domains above 2^16 would build multi-MB tables and
 # lose to direct evaluation; per-entry output size is further capped

@@ -217,13 +217,20 @@ def decode_data_bucketed(frame, rate: RateParams, n_sym_bucket: int,
                          viterbi_metric: str = None,
                          viterbi_radix: int = None,
                          fused_demap: bool = None,
-                         sco_track: bool = False):
+                         sco_track: bool = False, fxp: bool = False):
     """DATA decode of ONE frame (FRAME_DATA_START + 80*n_sym_bucket, 2)
     padded to a symbol bucket, with n_bits_real true data bits ->
     (n_sym_bucket * n_dbps,) descrambled bits; steps at or past
     n_bits_real are erasures. Fused (float32 metrics, no window): the
     known-rate fused kernel over one lane; otherwise the front at
-    `rate` and the Viterbi of the mode (:func:`_decode_data_bits_unfused`)."""
+    `rate` and the Viterbi of the mode (:func:`_decode_data_bits_unfused`).
+    ``fxp``: `frame` is Q11-quantized and the integer interior decodes
+    it (rx_fxp.decode_data_bucketed_fxp, the scan decoder); every other
+    knob is ignored, as in the reference."""
+    if fxp:
+        from ziria_tpu_torch.phy.wifi import rx_fxp
+        return rx_fxp.decode_data_bucketed_fxp(frame, rate, n_sym_bucket,
+                                               n_bits_real)
     if fused_demap_enabled(fused_demap) \
             and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frame[None], n_sym_bucket, sco_track)
@@ -609,6 +616,21 @@ def _padded_segment(acq: _Acquired, n_sym_bucket: int, device="cuda"):
             torch.from_numpy(frame_pad).to(device)[None], eps)[0]
 
 
+def _agc_quantize(seg: torch.Tensor, preamble: np.ndarray) -> torch.Tensor:
+    """The fixed-point boundary of ``receive(fxp=True)``: `seg` scaled to
+    unit average power over the real preamble, then quantized to Q11.
+    The RMS is numpy float64 on the host, as the reference's. The
+    reference divides a float32 array by it in float32, the divisor
+    rounded to float32; here both float32 values are divided in float64
+    and the quotient rounded to float32, which is that same correctly
+    rounded quotient on every device."""
+    from ziria_tpu_torch.phy.wifi import rx_fxp
+    rms = float(np.sqrt(np.mean(preamble.astype(np.float64) ** 2) * 2.0))
+    div = float(np.float32(max(rms, 1e-12)))
+    return rx_fxp.quantize_frame(
+        (seg.to(torch.float64) / div).to(torch.float32))
+
+
 def check_device(device, caller: str) -> torch.device:
     """`device` as a torch.device; raises when it is CUDA and no card
     is there (the port never falls back to the CPU by itself)."""
@@ -645,12 +667,14 @@ def receive(samples, check_fcs: bool = False,
     ``sco_track`` (or ZIRIA_RX_SCO_TRACK) adds the pilot phase-ramp
     tracking. ``geometry`` (a ``utils.geometry.Geometry``) supplies the
     default of every decode-mode knob left None. Runs on `device`
-    ("cuda" by default; the tests pass "cpu"). ``fxp`` raises
-    NotImplementedError naming the ROADMAP.md item that ports it."""
-    if fxp:
-        raise NotImplementedError(
-            "receive(fxp=True) is not ported yet (ROADMAP.md queue 1, "
-            "item 9, 'Fixed-point path and entry points')")
+    ("cuda" by default; the tests pass "cpu").
+
+    ``fxp=True`` routes the DATA decode through the Q15 integer interior
+    (phy/wifi/rx_fxp.py): acquisition and SIGNAL stay float32; the
+    aligned data region is AGC-normalized by the preamble RMS
+    (:func:`_agc_quantize`) and quantized to Q11,
+    after which every decode op is exact integer arithmetic. The
+    window, metric, radix, SCO and fused knobs are ignored under it."""
     if geometry is not None:
         viterbi_window = (geometry.viterbi_window
                           if viterbi_window is None else viterbi_window)
@@ -670,13 +694,19 @@ def receive(samples, check_fcs: bool = False,
         rate = RATES[acq.rate_mbps]
         n_sym_b = _sym_bucket(acq.n_sym)
         seg = _padded_segment(acq, n_sym_b, device)
+        if fxp:
+            seg = _agc_quantize(seg, acq.frame_np[:320])
         with dispatch.timed("rx.decode_bucketed"):
-            clear = decode_data_bucketed(
-                seg, rate, n_sym_b, acq.n_sym * rate.n_dbps,
-                viterbi_window, viterbi_metric,
-                viterbi._check_radix(viterbi_radix),
-                fused_demap_enabled(fused_demap),
-                sco_track_enabled(sco_track))
+            if fxp:
+                clear = decode_data_bucketed(
+                    seg, rate, n_sym_b, acq.n_sym * rate.n_dbps, fxp=True)
+            else:
+                clear = decode_data_bucketed(
+                    seg, rate, n_sym_b, acq.n_sym * rate.n_dbps,
+                    viterbi_window, viterbi_metric,
+                    viterbi._check_radix(viterbi_radix),
+                    fused_demap_enabled(fused_demap),
+                    sco_track_enabled(sco_track))
         psdu = clear[N_SERVICE_BITS: N_SERVICE_BITS + 8 * acq.length_bytes]
         crc = bool(check_crc32(psdu)) if check_fcs else None
         return RxResult(True, acq.rate_mbps, acq.length_bytes,

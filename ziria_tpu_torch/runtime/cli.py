@@ -5,7 +5,9 @@ The reference's compiled executables all share one CLI
 --input-file-mode=dbg|bin --output=...``. This driver keeps that flag
 surface and the compiler flags of the reference's driver: backend
 selection (``--backend=interp|jit|hybrid``), the vectorization width,
-``--fold``, the pass dumps and the Viterbi knobs. The program is a
+``--fold``, ``--autolut``, the fixed-point policy ``--fxp-complex16``,
+stream-state checkpoints (``--state-in``/``--state-out``, jit backend),
+the pass dumps and the Viterbi knobs. The program is a
 ``.zir`` source file (``--src``).
 
     python -m ziria_tpu_torch --src=examples/wifi_rx.zir \
@@ -41,16 +43,12 @@ REFUSED_SUBCOMMANDS = {"lint": 4, "programs": 4, "autotune": 4,
 #: flags of the reference's driver that this one refuses: flag -> (dest
 #: in the reference's parser, how it takes a value, ROADMAP item)
 REFUSED_FLAGS = {
-    "--autolut": ("autolut", "store_true", "6b"),
-    "--fxp-complex16": ("fxp_complex16", "store_true", "7"),
     "--pp": ("pp", "value", "5"),
     "--pp-costs": ("pp_costs", "value", "5"),
     "--sp": ("sp", "value", "5"),
     "--profile": ("profile", "store_true", "4"),
     "--profile-trace": ("profile_trace", "value", "4"),
-    "--scan": ("scan", "store_true", "7"),
-    "--state-in": ("state_in", "value", "7"),
-    "--state-out": ("state_out", "value", "7"),
+    "--scan": ("scan", "store_true", "6b"),
     "--batch-input-files": ("batch_input_files", "value", "6b"),
     "--batch-output-files": ("batch_output_files", "value", "6b"),
 }
@@ -97,6 +95,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="vectorization width (default: planner)")
     p.add_argument("--fold", action="store_true", default=True)
     p.add_argument("--no-fold", dest="fold", action="store_false")
+    p.add_argument("--autolut", action="store_true",
+                   help="rewrite small-domain pure maps and calls into "
+                        "table gathers (core/autolut.py, "
+                        "frontend/lutinfer.py)")
+    p.add_argument("--fxp-complex16", action="store_true",
+                   help="int16 fixed-point complex16 policy: stream "
+                        "items and arithmetic are integer IQ pairs "
+                        "with C shorts semantics (wrap at store); "
+                        "f32 is retained only inside explicitly "
+                        "complex-typed ext calls such as v_fft")
+    p.add_argument("--state-in", metavar="FILE",
+                   help="resume the stream state from a checkpoint "
+                        "written by --state-out (jit backend; the "
+                        "program's fingerprint must match)")
+    p.add_argument("--state-out", metavar="FILE",
+                   help="write the stream state after the run to FILE "
+                        "(.npz; jit backend)")
     p.add_argument("--ddump-fold", action="store_true",
                    help="dump the IR after folding")
     p.add_argument("--ddump-hybrid", action="store_true",
@@ -142,7 +157,8 @@ def _resolve_prog(args):
     if not args.src:
         raise SystemExit("need --src=FILE (a .zir program)")
     from ziria_tpu_torch.frontend import compile_file
-    prog = compile_file(args.src)
+    prog = compile_file(args.src, fxp_complex16=args.fxp_complex16,
+                        autolut=args.autolut)
     return prog.comp, prog.in_ty, prog.out_ty
 
 
@@ -198,6 +214,11 @@ def _run_cmd(args) -> int:
     in_ty = args.input_type or src_in_ty or "int32"
     out_ty = args.output_type or src_out_ty or "int32"
 
+    # autolut first: fold's map-map fusion erases in_domain declarations,
+    # so the LUT rewrite must see the maps before they fuse
+    if args.autolut:
+        from ziria_tpu_torch.core.autolut import autolut
+        comp = autolut(comp)
     if args.fold:
         from ziria_tpu_torch.core.opt import fold
         comp = fold(comp)
@@ -273,6 +294,9 @@ def _run_backend(comp, xs, args, t0, dev):
     """Run on interp / hybrid / jit; returns (ys, seconds, backend that
     ran)."""
     if args.backend in ("interp", "hybrid"):
+        if args.state_in or args.state_out:
+            raise SystemExit("--state-in/--state-out need --backend=jit "
+                             "(stream state is the jit carry)")
         backend = args.backend
         if backend == "hybrid":
             # interpreter-driven control, heavy do-blocks on the device
@@ -285,12 +309,23 @@ def _run_backend(comp, xs, args, t0, dev):
         return (_host(res.out_array()), time.perf_counter() - t0,
                 backend)
     from ziria_tpu_torch.backend.execute import run_jit_carry
-    from ziria_tpu_torch.backend.lower import LowerError
+    from ziria_tpu_torch.backend.lower import LowerError, lower
     stats: Optional[dict] = {} if args.stats else None
     try:
-        ys, _carry = run_jit_carry(comp, xs, width=args.width,
-                                   stats_out=stats, device=dev)
+        carry = None
+        if args.state_in:
+            from ziria_tpu_torch.runtime.state import (load_state,
+                                                       program_fingerprint)
+            carry = load_state(args.state_in,
+                               like=lower(comp, width=args.width,
+                                          device=dev).init_carry,
+                               fingerprint=program_fingerprint(comp))
+        ys, carry = run_jit_carry(comp, xs, carry=carry, width=args.width,
+                                  stats_out=stats, device=dev)
     except LowerError as e:
+        if args.state_in or args.state_out:
+            raise SystemExit(
+                f"--state-in/--state-out need a fusable pipeline ({e})")
         # dynamic-control programs can't fuse; instead of refusing
         # (the reference's compiler compiles everything), run the
         # hybrid executor — same results, control on the host, heavy
@@ -309,6 +344,11 @@ def _run_backend(comp, xs, args, t0, dev):
         res = run(hybridize(comp, device=dev), list(xs))
         return (_host(res.out_array()), time.perf_counter() - t0,
                 "hybrid")
+    if args.state_out:
+        from ziria_tpu_torch.runtime.state import (program_fingerprint,
+                                                   save_state)
+        save_state(args.state_out, carry,
+                   fingerprint=program_fingerprint(comp))
     if args.stats:
         # printed straight from the executor's own split arithmetic
         print(f"plan: width={stats['width']} take={stats['take']} "
