@@ -197,7 +197,38 @@ Phases, each printing one JSON line:
    Times: batch ms (host clock, 3 reps), samples/s as ``bench.py``'s
    ``sps`` (128 * frame_len / batch seconds), CUDA-event ms of the
    front and of the decode, peak device memory;
-13. timing: ``receive_many`` in every decode mode, the modes in turns
+13. observe: the CLI's run and serve surface, tracing, the program
+   observatory and the autotuner, each through ``runtime/cli.main`` on
+   the card. ``serve`` at the reference's defaults (4 lanes, 6 sessions
+   of 2 frames, chunk 4096, frame 1024), then under a ``--chaos`` plan
+   of transient scan and decode faults with ``--metrics-dump``, then with
+   ``--snapshot-dir`` and a ``--recover`` from it: every report counts
+   every frame, its stats balanced; the fault-free fleet's ACS and
+   traceback launches equal to its decode dispatches, the faulted
+   fleet's equal to each other, at least one and at most its decode
+   dispatches. ``--prog`` for
+   ``fir``, ``fft64``, ``ifft64``, ``scramble`` and ``wifi_tx_sym_54``
+   on the card against ``--platform=cpu`` (``scramble`` bit-equal, the
+   rest within ``OBSERVE_PROGS``' tolerances). ``--trace`` on
+   ``scrambler.zir`` (the jit executor's spans) and on the ``wifi_rx``
+   golden case with ``--viterbi-window=64`` and the kernels built afresh
+   inside the run: its output equal to the ground file, the trace
+   parsing, holding the hybrid and windowed-decode spans and one
+   ``nvcc:viterbi.cu`` compile. ``--profile --profile-trace`` on
+   ``scrambler.zir``: CUDA-event stage times, a profiler trace with
+   kernels and the site ranges. ``programs --batch --trace-dir``: the
+   128-capture ``receive_many`` batch (default and ``fused_demap``) and
+   the 128-frame ``decode_data_batch_fxp`` batch under
+   ``torch.profiler``, every PSDU right, the ACS, traceback and fused
+   launches the profiler saw equal to the wrappers' counters and each
+   block's own kernels (``OBSERVE_LAUNCHED``) launched, the kept trace
+   naming the ACS and traceback kernels; per site its launches, device
+   and host ms and top kernels, and each batch's device busy and idle
+   share under the profiler and its busy ms over the batch's unprofiled
+   ms. ``autotune --frames 8 --reps 2`` into a record file of
+   its own: the winner identity-clean, ``Geometry.tuned`` reproducing
+   it, no file of the checkout changed. At most ``OBSERVE_BUDGET_S``;
+14. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -362,11 +393,30 @@ FXP_CPU_LANES = 4        # lanes also decoded on the CPU, held bitwise
 FXP_RECEIVE = (54, 6)    # rx.receive(fxp=True) captures: one per rate
 FXP_LINK = (b"fixed-point frame one", b"and two")
 FXP_SEED = 20261018
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores (integer adds are
-# counted at the same rate)
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
+# the observe phase: the CLI's serve at the reference's defaults, then
+# under transient faults with --metrics-dump, then snapshotted and
+# recovered; the registry pipelines on the card against the CPU (input
+# items and tolerance each); the traced, profiled golden cases (the
+# wifi_rx one with a window short enough to launch the decode kernels,
+# built afresh inside the trace; the profiler stays off there: under
+# it, with its 142,813 kernels recorded, that run took 49 s on an H100
+# host); the programs --batch profiles; the autotuner at a smoke size
+OBSERVE_SERVE = ("--lanes", "4", "--sessions", "6", "--frames", "2",
+                 "--chunk-len", "4096", "--frame-len", "1024")
+OBSERVE_CHAOS = ("seed=3;rx.stream_chunk_multi:transient:every=5;"
+                 "rx.stream_decode_multi:transient:every=3")
+OBSERVE_PROGS = {"fir": ("float32", "float32", 1024, 1e-5),
+                 "fft64": ("complex16", "float32", 1024, 1e-4),
+                 "ifft64": ("complex16", "float32", 1024, 1e-4),
+                 "scramble": ("bit", "bit", 4096, 0.0),
+                 "wifi_tx_sym_54": ("bit", "float32", 8 * 216, 1e-4)}
+OBSERVE_WINDOW = 64
+OBSERVE_AUTOTUNE = ("--frames", "8", "--reps", "2")
+OBSERVE_BUDGET_S = 120.0
+# the kernels each programs --batch block must launch
+OBSERVE_LAUNCHED = {"receive_many": ("acs", "traceback"),
+                    "receive_many_fused": ("traceback", "fused_mixed"),
+                    "fxp_batch": ("acs", "traceback")}
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
@@ -601,8 +651,14 @@ def same_bits(torch, got, want, what: str) -> float:
 
 def bound(nbytes, nops):
     """(ms, "bytes" | "operations"): the larger of the bytes over the
-    HBM rate and the operations over the float32 rate."""
-    tb_, to = nbytes / HBM_BYTES_S * 1e3, nops / F32_OPS_S * 1e3
+    HBM rate and the operations over the float32 rate, the H100 SXM's
+    published peaks of ``programs.DEVICE_PEAKS`` (float32 operations
+    outside the tensor cores; integer adds counted at the same rate)."""
+    from ziria_tpu_torch.utils.programs import DEVICE_PEAKS
+
+    pk = DEVICE_PEAKS["h100"]
+    tb_ = nbytes / (pk["hbm_gbps"] * 1e9) * 1e3
+    to = nops / (pk["peak_tflops"] * 1e12) * 1e3
     return (tb_, "bytes") if tb_ >= to else (to, "operations")
 
 
@@ -1937,6 +1993,322 @@ def fxp_phase(rng, dev, card):
     return out, launches, checks
 
 
+def cli_out(argv):
+    """(return code, stdout, stderr) of one in-process ``cli.main``."""
+    import contextlib
+    import io
+
+    from ziria_tpu_torch.runtime import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def serve_report(argv, sessions, frames, what):
+    """One ``serve`` subcommand run on the card, its JSON report checked:
+    every session's frames served, the stats balanced. Returns (the
+    report, host ms, stderr, the decode dispatches, the ACS and
+    traceback launches)."""
+    from ziria_tpu_torch.ops import viterbi_cuda as vc
+    from ziria_tpu_torch.utils import dispatch
+
+    vc.reset_launches()
+    with dispatch.count_dispatches() as d:
+        (rc, out, err), ms = host_ms(lambda: cli_out(["serve", *argv]))
+    check(rc == 0, f"serve {what}: returned {rc}")
+    rep = json.loads(out.strip().splitlines()[-1])
+    st = rep["stats"]
+    check(rep["frames"] == st["frames"] == sessions * frames
+          and st["admitted"] == st["closed"] == sessions
+          and st["shed"] == st["evicted"] == st["rejected_slabs"] == 0
+          and st["active_sessions"] == st["queue_depth"] == 0,
+          f"serve {what}: unbalanced report {rep}")
+    return (rep, ms, err, d.counts.get("rx.stream_decode_multi", 0),
+            dict(vc.LAUNCHES))
+
+
+def fresh_build(tmp):
+    """Point the kernel build at an empty directory under `tmp` and drop
+    the loaded library, so the next launch compiles with nvcc again.
+    Returns a function that puts the old directory back."""
+    from ziria_tpu_torch import cuda_build
+    from ziria_tpu_torch.ops import viterbi_cuda as vc
+
+    old = cuda_build.BUILD_DIR
+
+    def reset(path):
+        cuda_build.BUILD_DIR = path
+        cuda_build._libs.clear()
+        vc._lib.cache_clear()
+    reset(os.path.join(tmp, "build"))
+    return lambda: reset(old)
+
+
+def golden_argv(name, mode, backend, outfile, extra=()):
+    here = os.path.dirname(os.path.abspath(__file__))
+    ex = os.path.join(here, "examples")
+    return [f"--src={os.path.join(ex, name + '.zir')}",
+            f"--input-file-name={os.path.join(ex, 'golden', name)}.infile",
+            f"--input-file-mode={mode}", f"--output-file-mode={mode}",
+            f"--output-file-name={outfile}", f"--backend={backend}", *extra]
+
+
+def site_split(rep, labels):
+    """Launches, device ms and host ms of `labels` in a profile."""
+    return {lb: {k: rep["sites"].get(lb, {}).get(k, 0)
+                 for k in ("calls", "launches", "device_ms", "host_ms")}
+            for lb in labels}
+
+
+def observe_phase(rng, dev, card):
+    """The CLI's run and serve surface, tracing, the observatory and the
+    autotuner on the card, all through ``runtime/cli.main``. Returns
+    (the phase's JSON object, the batch profiles' launch counters)."""
+    import tempfile
+
+    import torch
+
+    from ziria_tpu_torch.runtime import cli
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream, \
+        write_stream
+    from ziria_tpu_torch.utils import geometry, programs
+    from ziria_tpu_torch.utils.diff import stream_diff
+
+    t_phase = time.perf_counter()
+    out = {"phase": "observe", "card": card}
+    n_sessions, n_frames = (int(OBSERVE_SERVE[OBSERVE_SERVE.index(f) + 1])
+                            for f in ("--sessions", "--frames"))
+    with tempfile.TemporaryDirectory() as tmp:
+        # serve: defaults, then chaos with --metrics-dump, then
+        # snapshots and a recovery
+        serve = {}
+        rep, ms, _err, decodes, launches = serve_report(
+            OBSERVE_SERVE, n_sessions, n_frames, "defaults")
+        check(launches["acs"] == launches["traceback"] == decodes > 0,
+              f"serve: {decodes} decodes but launches {launches}")
+        serve["defaults"] = dict(ms=ms, decode_dispatches=decodes,
+                                 launches={k: v for k, v in launches.items()
+                                           if v}, report=rep)
+        rep, ms, err, decodes, launches = serve_report(
+            OBSERVE_SERVE + ("--chaos", OBSERVE_CHAOS, "--metrics-dump"),
+            n_sessions, n_frames, "chaos")
+        check("metrics exposition" in err and "resilience_retries" in err,
+              "serve --chaos --metrics-dump: no exposition or no retry")
+        check(1 <= launches["acs"] == launches["traceback"] <= decodes,
+              f"serve chaos: {decodes} decodes, launches {launches}")
+        serve["chaos"] = dict(ms=ms, decode_dispatches=decodes,
+                              launches={k: v for k, v in launches.items()
+                                        if v}, report=rep, spec=OBSERVE_CHAOS)
+        snap = os.path.join(tmp, "snap")
+        for what, extra in (("snapshot", ("--snapshot-dir", snap,
+                                          "--snapshot-every", "2")),
+                            ("recover", ("--snapshot-dir", snap,
+                                         "--recover"))):
+            rep, ms, _err, decodes, launches = serve_report(
+                OBSERVE_SERVE + extra, n_sessions, n_frames, what)
+            serve[what] = dict(ms=ms, decode_dispatches=decodes,
+                               report=rep)
+        check(serve["recover"]["report"]["stats"]["restarts"] == 1,
+              "serve --recover did not restart from the snapshot dir")
+        out["serve"] = serve
+
+        # --prog on the card against --platform=cpu
+        progs = {}
+        for name, (ity, oty, n, atol) in OBSERVE_PROGS.items():
+            shape = (n, 2) if ity.startswith("complex") else (n,)
+            xs = (rng.normal(size=shape).astype(np.float32)
+                  if ity == "float32" else
+                  rng.integers(0, 2, shape).astype(np.uint8)
+                  if ity == "bit" else
+                  rng.integers(-1, 2, shape).astype(np.int16))
+            inf = os.path.join(tmp, f"{name}.in")
+            write_stream(StreamSpec(ty=ity, path=inf), xs)
+            got = {}
+            for plat in ("cuda", "cpu"):
+                outf = os.path.join(tmp, f"{name}.{plat}.out")
+                (rc, _o, _e), ms = host_ms(lambda: cli_out([
+                    f"--prog={name}", f"--input-file-name={inf}",
+                    f"--input-type={ity}", f"--output-file-name={outf}",
+                    f"--output-type={oty}", f"--platform={plat}"]))
+                check(rc == 0, f"--prog={name} on {plat}: returned {rc}")
+                got[plat] = read_stream(StreamSpec(ty=oty, path=outf))
+                progs.setdefault(name, {})[f"{plat}_ms"] = ms
+            a, b = got["cuda"], got["cpu"]
+            check(a.shape == b.shape and a.shape[0] > 0,
+                  f"--prog={name}: shapes {a.shape} {b.shape}")
+            err = float(np.abs(a.astype(np.float64) - b).max())
+            check(err <= atol, f"--prog={name}: card vs CPU {err} > {atol}")
+            progs[name].update(items_in=n, max_abs_err=err, atol=atol)
+        out["progs"] = progs
+
+        # --trace: a jit golden case, then the wifi_rx golden case with
+        # the decode windowed (its kernels launched) and the kernels
+        # built afresh inside the trace
+        traces = {}
+        path = os.path.join(tmp, "scrambler.trace.json")
+        outf = os.path.join(tmp, "scrambler.out")
+        (rc, _o, _e), ms = host_ms(lambda: cli_out(golden_argv(
+            "scrambler", "dbg", "jit", outf, (f"--trace={path}",))))
+        check(rc == 0, "scrambler --trace failed")
+        obj = json.load(open(path))
+        spans = sorted({e["name"] for e in obj["traceEvents"]
+                        if e.get("cat") == "host"})
+        check(bool(spans) and set(spans) <= {"execute.scan_bulk",
+                                             "execute.scan_rem"},
+              f"scrambler trace spans {spans}")
+        traces["scrambler"] = dict(ms=ms, events=len(obj["traceEvents"]),
+                                   spans=spans)
+        path = os.path.join(tmp, "wifi_rx.trace.json")
+        outf = os.path.join(tmp, "wifi_rx.out")
+        restore = fresh_build(tmp)
+        try:
+            (rc, _o, _e), ms = host_ms(lambda: cli_out(golden_argv(
+                "wifi_rx", "bin", "hybrid", outf,
+                (f"--trace={path}", f"--viterbi-window={OBSERVE_WINDOW}"))))
+        finally:
+            restore()
+        check(rc == 0, "wifi_rx --trace failed")
+        here = os.path.dirname(os.path.abspath(__file__))
+        want = read_stream(StreamSpec(ty="bit", path=os.path.join(
+            here, "examples", "golden", "wifi_rx.outfile.ground"),
+            mode="bin"))
+        got = read_stream(StreamSpec(ty="bit", path=outf, mode="bin"))
+        check(bool(stream_diff(got, want, name="wifi_rx")),
+              "wifi_rx windowed: the output differs from its ground file")
+        obj = json.load(open(path))
+        evs = obj["traceEvents"]
+        spans = sorted({e["name"] for e in evs if e.get("cat") == "host"})
+        compiles = [dict(name=e["name"], ms=e["dur"] / 1e3, **e["args"])
+                    for e in evs if e.get("cat") == "compile"]
+        check({"hybrid.device_block", "externals.viterbi_windowed"}
+              <= set(spans), f"wifi_rx trace spans {spans}")
+        check([c["name"] for c in compiles] == ["nvcc:viterbi.cu"],
+              f"wifi_rx trace compile events {compiles}")
+        launches = cli.LAST_RUN["launches"]
+        check(launches.get("acs", 0) >= 1
+              and launches.get("traceback", 0) >= 1,
+              f"wifi_rx windowed: launches {launches}")
+        traces["wifi_rx"] = dict(ms=ms, window=OBSERVE_WINDOW,
+                                 events=len(evs), spans=spans,
+                                 compiles=compiles, launches=launches)
+        out["trace"] = traces
+
+        # --profile and --profile-trace on a jit case
+        ptdir = os.path.join(tmp, "scrambler_profile")
+        (rc, _o, _e), ms = host_ms(lambda: cli_out(golden_argv(
+            "scrambler", "dbg", "jit", os.path.join(tmp, "p.out"),
+            ("--profile", f"--profile-trace={ptdir}"))))
+        check(rc == 0, "scrambler --profile failed")
+        rows = cli.LAST_RUN["profile"]
+        check(all(r["cuda_ms"] is not None for r in rows),
+              "--profile gave no CUDA-event time on the card")
+        pt = json.load(open(cli.LAST_RUN["profile_trace"]))["traceEvents"]
+        kern = [e for e in pt if e.get("cat") == "kernel"]
+        anns = {e["name"] for e in pt if e.get("cat") == "user_annotation"}
+        check(bool(kern) and anns & {"execute.scan_bulk",
+                                     "execute.scan_rem"},
+              "scrambler profiler trace: no kernel or no site range")
+        out["profile"] = dict(ms=ms, stages=rows, profiler_kernels=len(kern))
+
+        # programs --batch: the profiled batches, launches held to the
+        # wrappers' counters
+        pdir = os.path.join(tmp, "programs")
+        (rc, o, _e), ms = host_ms(lambda: cli_out(
+            ["programs", "--batch", "--json", f"--trace-dir={pdir}"]))
+        check(rc == 0, "programs --batch failed")
+        rep = json.loads(o)
+        pt = json.load(open(rep["profiles"]["receive_many"]["trace_path"]))
+        knames = {e["name"] for e in pt["traceEvents"]
+                  if e.get("cat") == "kernel"}
+        check(any("acs_kernel" in k for k in knames)
+              and any("traceback_kernel" in k for k in knames),
+              "programs --trace-dir: the profiler trace names no ACS or "
+              "traceback kernel")
+        batches, counters = {}, {}
+        for name, pr in rep["profiles"].items():
+            lc = pr["launch_counters"]
+            seen = {"acs": programs.kernel_count(pr, r"acs_kernel", "fused"),
+                    "traceback": programs.kernel_count(
+                        pr, r"traceback_kernel"),
+                    "fused_mixed": programs.kernel_count(
+                        pr, r"fused_acs_mixed_kernel")}
+            for k, v in seen.items():
+                check(v == lc.get(k, 0), f"programs {name}: the profiler "
+                      f"saw {v} {k} launches, the counters {lc}")
+            for k in OBSERVE_LAUNCHED[name]:
+                check(seen[k] >= 1, f"programs {name}: no {k} launch")
+            check(rep["right"][name] == B, f"programs {name}: "
+                  f"{rep['right'][name]} of {B} PSDUs right")
+            top = sorted(pr["sites"].items(),
+                         key=lambda kv: -kv[1]["device_ms"])
+            batches[name] = dict(
+                wall_ms=pr["wall_ms"], window_ms=pr["window_ms"],
+                busy_ms=pr["busy_ms"], busy_share=pr["busy_share"],
+                idle_share=pr["idle_share"],
+                unprofiled_ms=pr["unprofiled_ms"],
+                window_over_unprofiled=pr["window_over_unprofiled"],
+                idle_share_unprofiled=pr["idle_share_unprofiled"],
+                kernels=pr["kernels"], launch_counters=lc,
+                sites={k: {f: v.get(f) for f in
+                           ("calls", "host_ms", "launches", "copies",
+                            "device_ms", "top_kernels")}
+                       for k, v in top},
+                acquisition=site_split(pr, (
+                    "rx.acquire_pad", "rx.acquire_many", "sync.fir_valid",
+                    "sync.sliding_sum", "rx.signal_scan")))
+            counters[name] = lc
+        check(rep["sites_covered"] >= 1, "programs: no site covered")
+        out["programs"] = dict(ms=ms, batches=batches,
+                               device_kind=rep["device_kind"],
+                               device_peaks=rep["devicePeaks"])
+
+        # autotune at a smoke size into a record file of its own; no
+        # file of the repo may change
+        before = repo_files()
+        ledger = os.path.join(tmp, "tuned.jsonl")
+        (rc, o, _e), ms = host_ms(lambda: cli_out(
+            ["autotune", *OBSERVE_AUTOTUNE, "--ledger", ledger]))
+        check(rc == 0 and "reproduces the winner" in o,
+              f"autotune failed: {o[-400:]}")
+        from ziria_tpu_torch.utils import autotune
+        res = dict(autotune.MAIN_RESULT)
+        kind = torch.cuda.get_device_name(0)
+        check(res["device_kind"] == kind, "autotune: wrong device kind")
+        check(res["winner"] not in res["identity_rejected"],
+              "autotune: the winner failed the identity gate")
+        check(geometry.Geometry.tuned(kind, ledger).as_dict()
+              == res["geometry"], "Geometry.tuned does not reproduce it")
+        check(repo_files() == before, "autotune changed a file of the repo")
+        out["autotune"] = dict(
+            ms=ms, winner=res["winner"], speedup=res["speedup"],
+            sps_tuned=res["sps_tuned"], baseline_sps=res["baseline_sps"],
+            pruned=[r["label"] for r in res["pruned"]],
+            identity_rejected=res["identity_rejected"],
+            measured=res["measured"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    check(out["wall_s"] <= OBSERVE_BUDGET_S,
+          f"observe phase took {out['wall_s']:.1f} s of its "
+          f"{OBSERVE_BUDGET_S} s")
+    return out, counters
+
+
+def repo_files():
+    """(path, size, mtime) of every file of the checkout around this
+    script, build outputs and caches aside."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    skip = {".git", "__pycache__", "build", ".jax_cache", ".pytest_cache"}
+    out = []
+    for d, dirs, files in os.walk(here):
+        dirs[:] = [x for x in dirs if x not in skip]
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out.append((os.path.relpath(os.path.join(d, f), here),
+                        st.st_size, st.st_mtime_ns))
+    return sorted(out)
+
+
 def synth_phase(rng, dev, card):
     """serve.synth_load's streams through receive_streams on the card
     at SYNTH_GEO, launch counts zeroed just before and read just after;
@@ -2423,7 +2795,11 @@ def main(argv=None) -> int:
     fxp_line, fxp_launches, fxp_checks = fxp_phase(rng, dev, card)
     emit(fxp_line)
 
-    # ---- 13. timing
+    # ---- 13. the CLI surface, tracing, the observatory, the autotuner
+    observe_line, observe_launches = observe_phase(rng, dev, card)
+    emit(observe_line)
+
+    # ---- 14. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -2723,6 +3099,8 @@ def main(argv=None) -> int:
                              for xn, xl in fxp_launches.items()},
             "fxp_shapes": {xn: xc[name] for xn, xc in fxp_checks.items()
                            if name in xc},
+            "observe_launches": {on: ol.get(name, 0)
+                                 for on, ol in observe_launches.items()},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

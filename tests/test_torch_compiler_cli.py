@@ -1,9 +1,12 @@
 """The port's CLI (``python -m ziria_tpu_torch``), torch only.
 
 Flags and subcommands of the reference's driver whose modules are not
-ported exit non-zero naming their ROADMAP item (``--scan`` and the
-``--batch-*`` files name item 6b); ``--autolut``, ``--fxp-complex16``
-and ``--state-in``/``--state-out`` run; without a card the
+ported exit non-zero naming their ROADMAP item (``lint`` names 4d;
+``--ddump-vect``, ``--scan`` and the ``--batch-*`` files name item 6b;
+``--sp``, ``--pp`` and ``--pp-costs`` name 5); ``--autolut``,
+``--fxp-complex16``, ``--state-in``/``--state-out``, ``--profile`` and
+``--profile-trace`` run, and the ``serve``, ``programs`` and
+``autotune`` subcommands reach their own parsers; without a card the
 driver raises unless ``--platform=cpu`` is given; a program the jit
 backend cannot lower runs on the hybrid backend after a note on stderr,
 and the driver reports the backend that ran; the Viterbi knobs are
@@ -73,10 +76,15 @@ def test_refused_flag_names_its_roadmap_item(flag, capsys):
 
 
 def test_scan_and_batch_files_name_item_6b(capsys):
-    """They run framebatch.run_many and the chunked state machines,
-    which item 6b ports."""
-    for flag in ("--scan", "--batch-input-files", "--batch-output-files"):
+    """They run framebatch.run_many and the chunked state machines (and
+    --ddump-vect the vectorizer), which item 6b ports; the mesh flags
+    name item 5 and lint 4d."""
+    for flag in ("--scan", "--batch-input-files", "--batch-output-files",
+                 "--ddump-vect"):
         assert cli.REFUSED_FLAGS[flag][2] == "6b"
+    for flag in ("--sp", "--pp", "--pp-costs"):
+        assert cli.REFUSED_FLAGS[flag][2] == "5"
+    assert cli.REFUSED_SUBCOMMANDS == {"lint": "4d"}
     with pytest.raises(SystemExit) as e:
         cli.main(["--src=x.zir", "--scan"])
     assert e.value.code == 2
@@ -107,6 +115,33 @@ def test_ported_flag_runs(flag, tmp_path):
         with pytest.raises(SystemExit, match="need --backend=jit"):
             cli.main(_argv(src, inf, outf, "--platform=cpu",
                            "--backend=interp", *extra))
+
+
+@pytest.mark.parametrize("flag", ["--profile", "--profile-trace"])
+def test_profile_flag_runs(flag, tmp_path):
+    """The profile flags this driver once refused run the program: its
+    output is the plain run's, with the stage rows or the trace file."""
+    src, inf, outf = _files(tmp_path, STATIC, np.arange(8, dtype=np.int32))
+    extra = [flag] if flag == "--profile" else \
+        [f"{flag}={tmp_path / 'trace'}"]
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu", *extra)) == 0
+    got = read_stream(StreamSpec(ty="int32", path=outf, mode="dbg"))
+    np.testing.assert_array_equal(got, np.arange(8) * 3 - 1)
+    if flag == "--profile":
+        assert cli.LAST_RUN["backend"] == "profile"
+        assert [r["backend"] for r in cli.LAST_RUN["profile"]] == ["jit"]
+    else:
+        assert os.path.exists(cli.LAST_RUN["profile_trace"])
+
+
+@pytest.mark.parametrize("sub", ["serve", "programs", "autotune"])
+def test_ported_subcommand_runs(sub, capsys):
+    """Dispatched before the flags are parsed, to its own parser."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([sub, "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert f"ziria_tpu_torch {sub}" in out and "--platform" in out
 
 
 @pytest.mark.parametrize("sub", sorted(cli.REFUSED_SUBCOMMANDS))

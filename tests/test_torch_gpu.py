@@ -690,3 +690,55 @@ def test_fxp_batch_decode_on_card_equals_cpu(cuda, window):
     assert torch.equal(got.cpu(), want) and torch.equal(svc.cpu(), want_svc)
     np.testing.assert_array_equal(
         want.numpy(), np.unpackbits(psdus, axis=1, bitorder="little"))
+
+
+def test_programs_profile_counts_the_kernel_launches(cuda):
+    """The observatory on the card: the ACS and traceback kernels the
+    profiler saw equal the launch counters' delta over the same block,
+    they land in the decode's site, and busy + idle is the window."""
+    from ziria_tpu_torch.utils import programs
+
+    rng = np.random.default_rng(2)
+    caps = []
+    for k, m in enumerate(sorted(params.RATES)):
+        s = tx.encode_frame(rng.integers(0, 256, 60).astype(np.uint8), m,
+                            add_fcs=True, device="cpu").numpy()
+        caps.append(np.concatenate([np.zeros((30 + 9 * k, 2), np.float32),
+                                    s]))
+    framebatch.receive_many(caps, check_fcs=True, device=cuda)
+    obs = programs.Observatory()
+    vc.reset_launches()
+    with obs.profile("batch", cuda):
+        got = framebatch.receive_many(caps, check_fcs=True, device=cuda)
+    rep = obs.profiles["batch"]
+    assert all(r.ok and r.crc_ok for r in got)
+    assert programs.kernel_count(rep, r"acs_kernel", r"fused") == \
+        vc.LAUNCHES["acs"] == 1
+    assert programs.kernel_count(rep, r"traceback_kernel") == \
+        vc.LAUNCHES["traceback"] == 1
+    top = [k["name"] for k in rep["sites"]["rx.decode_mixed"]["top_kernels"]]
+    assert rep["sites"]["rx.decode_mixed"]["launches"] >= 2
+    assert any("acs_kernel" in n for n in top) or \
+        rep["sites"]["rx.decode_mixed"]["device_ms"] > 0
+    assert rep["kernels"] > 2 and 0 < rep["busy_share"] <= 1
+    assert rep["busy_share"] + rep["idle_share"] == pytest.approx(1.0)
+
+
+def test_serve_main_on_the_card_equals_cpu(cuda, capsys):
+    """``python -m ziria_tpu_torch serve`` on the card (the default
+    platform): every session's frame served, the stats balanced and
+    equal to the CPU run's."""
+    import json
+
+    from ziria_tpu_torch.runtime import serve
+
+    argv = ["--lanes", "2", "--sessions", "3", "--frames", "1"]
+    reports = []
+    for extra in ([], ["--platform=cpu"]):
+        assert serve.main(argv + extra) == 0
+        reports.append(json.loads(capsys.readouterr().out.splitlines()[-1]))
+    card, cpu = reports
+    assert card["frames"] == cpu["frames"] == 3
+    assert card["stats"] == cpu["stats"]
+    st = card["stats"]
+    assert st["admitted"] == st["closed"] == 3 and st["shed"] == 0

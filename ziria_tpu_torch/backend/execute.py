@@ -32,6 +32,7 @@ from ziria_tpu_torch.backend.lower import (Lowered, LowerError, _to_device,
                                            lower)
 from ziria_tpu_torch.frontend import eval as E
 from ziria_tpu_torch.ops.cplx import exact_fp32
+from ziria_tpu_torch.utils import dispatch
 
 __all__ = ["Lowered", "LowerError", "lower", "run_jit", "run_jit_carry",
            "run_vect"]
@@ -134,7 +135,8 @@ def run_jit_carry(comp: ir.Comp, inputs, carry=None,
         if n_bulk:
             bulk = inputs[: n_bulk * big.take].reshape(
                 (n_bulk, big.take) + inputs.shape[1:])
-            carry, ys = big.scan_steps()(carry, E._t(bulk, dev))
+            with dispatch.timed("execute.scan_bulk"):
+                carry, ys = big.scan_steps()(carry, E._t(bulk, dev))
             ys = _to_host(ys)
             outs.append(ys.reshape((n_bulk * big.emit,) + ys.shape[2:]))
 
@@ -145,7 +147,8 @@ def run_jit_carry(comp: ir.Comp, inputs, carry=None,
             small = lower(comp, width=rem_iters, device=dev)
             pos = n_bulk * big.take
             rem = inputs[pos: pos + small.take]
-            carry, ys = small.step(carry, E._t(rem, dev))
+            with dispatch.timed("execute.scan_rem"):
+                carry, ys = small.step(carry, E._t(rem, dev))
             outs.append(_to_host(ys))
 
     leftover = inputs[n_iters * big.ss.take:]

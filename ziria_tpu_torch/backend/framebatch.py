@@ -2,8 +2,9 @@
 ziria_tpu/backend/framebatch.py: ``receive_many`` :210,
 ``_mixed_decode_tail`` :287, ``receive_many_device`` :344, the
 single-stream receiver :405-1230 (``StreamReceiver``,
-``receive_stream``) and the S-stream fleet :1232-2041
-(``MultiStreamReceiver``, ``receive_streams``))."""
+``receive_stream``), the S-stream fleet :1232-2041
+(``MultiStreamReceiver``, ``receive_streams``) and the link's thin
+re-exports ``transmit_many`` :2044 and ``loopback_many`` :2056)."""
 
 from __future__ import annotations
 
@@ -921,7 +922,7 @@ class StreamReceiver:
 
     def _note_emitted(self, k: int) -> None:
         if k:
-            telemetry.count("rx.stream_frames", k)
+            telemetry.count("rx.stream_frames", k, total=self._emitted)
 
 
 def receive_stream(samples, chunk_len: Optional[int] = None,
@@ -1435,7 +1436,8 @@ class MultiStreamReceiver:
             out.append((i, StreamFrame(abs_start, emit[(i, abs_start)])))
             self._emitted[i] += 1
         if out:
-            telemetry.count("rx.stream_frames", len(out))
+            telemetry.count("rx.stream_frames", len(out),
+                            total=sum(self._emitted))
         return out
 
     def _decode(self, segs, rows, ridx, nbits, npsdu):
@@ -1471,7 +1473,8 @@ class MultiStreamReceiver:
             out.append((i, StreamFrame(abs_start, res)))
             self._emitted[i] += 1
         if out:
-            telemetry.count("rx.stream_frames", len(out))
+            telemetry.count("rx.stream_frames", len(out),
+                            total=sum(self._emitted))
         return out
 
     def _eager_chunk(self, chunks, valid, own_lo, own_hi):
@@ -1545,3 +1548,22 @@ def receive_streams(streams, chunk_len: Optional[int] = None,
     for i, fr in got:
         per[i].append(fr)
     return per, msr.stats
+
+
+def transmit_many(psdus, rates_mbps, add_fcs: bool = False,
+                  batched_tx: Optional[bool] = None,
+                  device="cuda") -> List[np.ndarray]:
+    """The batched TX surface beside ``receive_many`` (a re-export of
+    ``phy/link.transmit_many``): N frames, returned at their true
+    lengths; the per-frame loop under ``ZIRIA_BATCHED_TX=0``."""
+    from ziria_tpu_torch.phy import link
+    return link.transmit_many(psdus, rates_mbps, add_fcs=add_fcs,
+                              batched_tx=batched_tx, device=device)
+
+
+def loopback_many(psdus, rates_mbps, **kw) -> List[Any]:
+    """The N-frame loopback (a re-export of ``phy/link.loopback_many``):
+    fused by default, staged under ``fused=False`` or
+    ``ZIRIA_FUSED_LINK=0``."""
+    from ziria_tpu_torch.phy import link
+    return link.loopback_many(psdus, rates_mbps, **kw)

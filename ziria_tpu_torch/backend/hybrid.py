@@ -50,6 +50,7 @@ import torch
 from ziria_tpu_torch.core import ir
 from ziria_tpu_torch.frontend import ast as A
 from ziria_tpu_torch.frontend import eval as E
+from ziria_tpu_torch.utils import dispatch
 
 # a do-block is worth a device round-trip when its (loop-weighted) op
 # count clears this; below it host dispatch overhead wins
@@ -266,7 +267,8 @@ class _DeviceDo:
         dev = self.device
         env2 = _env_rebuild(struct, [_to_dev(v, dev) for v in vals])
         from ziria_tpu_torch.ops.cplx import exact_fp32
-        with E.device_mode("block", dev), exact_fp32(), torch.no_grad():
+        with E.device_mode("block", dev), exact_fp32(), torch.no_grad(), \
+                dispatch.timed("hybrid.device_block"):
             ret = self.closure(env2)
         refs = [_from_dev(v) for v in _env_refs(env2, struct)]
         _env_write_refs(env, struct, refs)

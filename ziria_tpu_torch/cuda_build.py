@@ -6,7 +6,9 @@ library's file name carries a hash of its source, so an edited source
 is rebuilt and an unchanged one is reused. Builds happen at first use
 (or all at once, in parallel, through :func:`build_all`) into
 ``csrc/build/``, which git ignores. There is no fallback: without
-``nvcc`` the build raises.
+``nvcc`` the build raises. Each nvcc run is the port's only compile: it
+reports itself to ``utils/telemetry`` as a ``compile`` event named
+``nvcc:<source>`` with its seconds.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import tempfile
 import threading
 import time
 from typing import Dict
+
+from ziria_tpu_torch.utils import telemetry
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -93,6 +97,9 @@ def build_all(names=None) -> Dict[str, dict]:
         os.replace(tmp, out)
         info[name] = {"path": out, "seconds": time.perf_counter() - t0,
                       "log": log}
+        telemetry.record_compile(
+            f"nvcc:{SOURCES[name]}", seconds=info[name]["seconds"],
+            args={"library": os.path.basename(out)})
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return info

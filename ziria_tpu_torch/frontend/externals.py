@@ -21,6 +21,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from ziria_tpu_torch.utils import dispatch
+
 #: launches of viterbi_soft's device decode paths since the last reset:
 #: "scan" (ops/viterbi.viterbi_decode) and "windowed"
 #: (ops/viterbi_cuda.viterbi_decode_batch_windowed)
@@ -342,13 +344,15 @@ def _viterbi_soft(llrs, npairs, nbits):
             # only frames long enough to actually window: short
             # decodes (the 24-step SIGNAL field) keep the scan decoder
             VITERBI_CALLS["windowed"] += 1
-            bits = _vc.viterbi_decode_batch_windowed(
-                arr[None, : 2 * npairs], n_bits=nbits, window=win,
-                metric_dtype=metric, radix=radix)[0]
+            with dispatch.timed("externals.viterbi_windowed"):
+                bits = _vc.viterbi_decode_batch_windowed(
+                    arr[None, : 2 * npairs], n_bits=nbits, window=win,
+                    metric_dtype=metric, radix=radix)[0]
         else:
             VITERBI_CALLS["scan"] += 1
-            bits = viterbi_decode(arr[None, : 2 * npairs], n_bits=nbits,
-                                  metric_dtype=metric)[0]
+            with dispatch.timed("externals.viterbi_scan"):
+                bits = viterbi_decode(arr[None, : 2 * npairs],
+                                      n_bits=nbits, metric_dtype=metric)[0]
         pad = torch.zeros(arr.shape[0] // 2 - nbits, dtype=torch.uint8,
                           device=arr.device)
         return torch.cat([bits.to(torch.uint8), pad])

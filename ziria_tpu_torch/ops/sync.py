@@ -18,15 +18,17 @@ import torch
 from ziria_tpu_torch.ops import cplx
 from ziria_tpu_torch.ops.ofdm import LTS_FREQ, N_FFT, TIME_SCALE, \
     lts_time_symbol
+from ziria_tpu_torch.utils import telemetry
 
 
 def _fir_valid(x: torch.Tensor, taps) -> torch.Tensor:
     """Valid-mode correlation along axis 1: out[:, k] = sum_j
     x[:, k + j] * taps[j], accumulated tap by tap."""
     m = x.shape[1] - len(taps) + 1
-    acc = x[:, 0:m] * float(taps[0])
-    for j in range(1, len(taps)):
-        acc = acc + x[:, j:j + m] * float(taps[j])
+    with telemetry.span("sync.fir_valid"):
+        acc = x[:, 0:m] * float(taps[0])
+        for j in range(1, len(taps)):
+            acc = acc + x[:, j:j + m] * float(taps[j])
     return acc
 
 
@@ -42,9 +44,10 @@ def _sliding_sum(x: torch.Tensor, w: int) -> torch.Tensor:
         c = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
         return c[:, w:] - c[:, :-w]
     m = x.shape[1] - w + 1
-    acc = x[:, 0:m]
-    for j in range(1, w):
-        acc = acc + x[:, j:j + m]
+    with telemetry.span("sync.sliding_sum"):
+        acc = x[:, 0:m]
+        for j in range(1, w):
+            acc = acc + x[:, j:j + m]
     return acc
 
 

@@ -36,7 +36,7 @@ from ziria_tpu_torch.phy.wifi.params import (MAX_DBPS, N_SERVICE_BITS,
                                              RATE_MBPS_ORDER, RATES,
                                              SIGNAL_BITS_TO_MBPS,
                                              RateParams, n_symbols)
-from ziria_tpu_torch.utils import dispatch, geometry
+from ziria_tpu_torch.utils import dispatch, geometry, programs, telemetry
 from ziria_tpu_torch.utils.bits import bits_to_uint
 from ziria_tpu_torch.utils.dispatch import pow2_ceil
 
@@ -137,7 +137,8 @@ def decode_signal(frame):
     data = pilot_phase_correct(data, pilots, symbol_index0=0)
     llr = demap_mod.demap(data, 1, gain=gain[:, None])[:, 0]   # (B, 48)
     deint = interleave.deinterleave(llr, 48, 1)
-    bits = viterbi.viterbi_decode(deint, n_bits=24)
+    with telemetry.span("rx.signal_scan"):
+        bits = viterbi.viterbi_decode(deint, n_bits=24)
     rate_bits = bits_to_uint(bits[:, 0:4], msb_first=True)
     length = bits_to_uint(bits[:, 5:17])
     parity_ok = bits[:, :18].to(torch.int64).sum(-1) % 2 == 0
@@ -439,6 +440,8 @@ def acquire_batch(x_dev, n_valid, limits, n_lanes: int):
                          device=dev)
     lim = torch.as_tensor(np.asarray(limits), dtype=torch.int64,
                           device=dev)
+    programs.note_site("rx.acquire_many", acquire_frame_graph, x_dev, nv,
+                       lim)
     with dispatch.timed("rx.acquire_many"):
         outs = acquire_frame_graph(x_dev, nv, lim)
     # one transfer: every field is exact in float64 (eps is float32)
@@ -469,21 +472,22 @@ def acquire_many(captures, max_samples: int = 1 << 16, device="cuda"):
     capture bucket; each lane's own bucket caps its detection."""
     if not len(captures):
         return [], torch.zeros((0, 0, 2), device=device), []
-    xs = [np.asarray(s, np.float32)[:max_samples] for s in captures]
-    n_valid = np.asarray([x.shape[0] for x in xs], np.int64)
-    bucket = geometry.capture_bucket(int(n_valid.max()))
-    n_lanes = len(xs)
-    n_rows = pow2_ceil(n_lanes)
-    x_pad = np.zeros((n_rows, bucket, 2), np.float32)
-    for i, x in enumerate(xs):
-        x_pad[i, :x.shape[0]] = x
-    if n_lanes < n_rows:
-        x_pad[n_lanes:] = x_pad[0]
-    nv_pad = np.full((n_rows,), n_valid[0], np.int64)
-    nv_pad[:n_lanes] = n_valid
-    limits = np.asarray([geometry.capture_bucket(int(v)) for v in nv_pad],
-                        np.int64)
-    x_dev = torch.from_numpy(x_pad).to(device)
+    with telemetry.span("rx.acquire_pad"):
+        xs = [np.asarray(s, np.float32)[:max_samples] for s in captures]
+        n_valid = np.asarray([x.shape[0] for x in xs], np.int64)
+        bucket = geometry.capture_bucket(int(n_valid.max()))
+        n_lanes = len(xs)
+        n_rows = pow2_ceil(n_lanes)
+        x_pad = np.zeros((n_rows, bucket, 2), np.float32)
+        for i, x in enumerate(xs):
+            x_pad[i, :x.shape[0]] = x
+        if n_lanes < n_rows:
+            x_pad[n_lanes:] = x_pad[0]
+        nv_pad = np.full((n_rows,), n_valid[0], np.int64)
+        nv_pad[:n_lanes] = n_valid
+        limits = np.asarray([geometry.capture_bucket(int(v))
+                             for v in nv_pad], np.int64)
+        x_dev = torch.from_numpy(x_pad).to(device)
     results, lanes = acquire_batch(x_dev, nv_pad, limits, n_lanes)
     return results, x_dev, lanes
 
@@ -674,7 +678,14 @@ def receive(samples, check_fcs: bool = False,
     aligned data region is AGC-normalized by the preamble RMS
     (:func:`_agc_quantize`) and quantized to Q11,
     after which every decode op is exact integer arithmetic. The
-    window, metric, radix, SCO and fused knobs are ignored under it."""
+    window, metric, radix, SCO and fused knobs are ignored under it.
+    The integer interior is exact on equal input, but its Q11 input is
+    not the reference's bit for bit: the float32 acquisition and CFO
+    rotation before it round differently (XLA's float32 sin, cos and
+    atan2 are its own), so a few Q11 samples of a capture can differ
+    by one LSB. The whole receive is held field for field to the
+    reference's (tests/test_torch_rx_fxp_lowsnr.py bounds the Q11
+    difference on 64 captures down to low SNR)."""
     if geometry is not None:
         viterbi_window = (geometry.viterbi_window
                           if viterbi_window is None else viterbi_window)

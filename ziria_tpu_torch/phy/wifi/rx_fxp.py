@@ -6,6 +6,11 @@ The reference RX ran its whole steady-state chain in int16 fixed point
 This module is the division-free integer decode path whose every op is
 exact int32 arithmetic, so its output is **bit-identical across
 devices, batch widths and packages** for identical quantized input.
+The input of ``rx.receive(fxp=True)`` is not identical between the
+packages: it comes from float32 acquisition, whose sums and
+transcendentals round differently, so that receive is held to the
+reference field for field, with a bound on its Q11 difference, not
+bit for bit.
 
 - the aligned, CFO-corrected frame is quantized to Q11 int16 IQ
   (`quantize_frame`), the fixed-point boundary;
@@ -37,6 +42,7 @@ from ziria_tpu_torch.ops import coding, fxp, interleave, ofdm, scramble, \
 from ziria_tpu_torch.ops.demap import _NORM as _NORM_F
 from ziria_tpu_torch.phy.wifi.params import N_SERVICE_BITS, RateParams
 from ziria_tpu_torch.phy.wifi.rx import FRAME_DATA_START
+from ziria_tpu_torch.utils import telemetry
 
 Q_IN = 11              # input quantization: Q11 (4 bits of PAPR headroom)
 _DFT_SHIFT = 10        # dft64_q14 shift: bins ~= DFT * 2^-3 of Q11 input
@@ -209,10 +215,12 @@ def decode_data_batch_fxp(frames_q, rate: RateParams, n_sym: int,
     ``viterbi_window`` opts into the sliding-window decode, exactly as
     on the float path; the integer LLRs reaching the kernel are
     unchanged, so bit-identity across devices holds per window too."""
-    dep = _front_batch(frames_q, rate, n_sym)
-    bits = viterbi_cuda.viterbi_decode_batch_opt(
-        dep.to(torch.float32), n_bits=n_sym * rate.n_dbps,
-        window=viterbi_window)
-    clear = _descramble(bits)
+    with telemetry.span("rx_fxp.front"):
+        dep = _front_batch(frames_q, rate, n_sym)
+    with telemetry.span("rx_fxp.decode"):
+        bits = viterbi_cuda.viterbi_decode_batch_opt(
+            dep.to(torch.float32), n_bits=n_sym * rate.n_dbps,
+            window=viterbi_window)
+        clear = _descramble(bits)
     return (clear[:, N_SERVICE_BITS: N_SERVICE_BITS + n_psdu_bits],
             clear[:, :N_SERVICE_BITS])

@@ -1,5 +1,5 @@
-"""802.11a/g OFDM transmitter (counterpart of ziria_tpu/phy/wifi/tx.py
-without the DSL pipeline form): crc >>> scramble >>> convolutional
+"""802.11a/g OFDM transmitter (counterpart of ziria_tpu/phy/wifi/tx.py):
+crc >>> scramble >>> convolutional
 encode + puncture >>> interleave >>> modulate >>> map subcarriers >>>
 IFFT + CP, behind the preamble and the SIGNAL symbol.
 
@@ -10,7 +10,9 @@ reference ran ``vmap(lax.switch)`` over the eight rates' encoders;
 ``encode_batch`` is its single-rate sibling. A lane's samples equal
 ``encode_frame``'s bit for bit whatever the batch (every stage is
 per-position or per-symbol, and the DFT runs at fixed row blocks,
-``cplx.DFT_BLOCK_ROWS``)."""
+``cplx.DFT_BLOCK_ROWS``). ``tx_symbol_pipeline`` is the DATA symbols'
+steady state as a stream program of ``core/ir`` stages, the CLI's
+``wifi_tx_sym_*``."""
 
 from __future__ import annotations
 
@@ -297,3 +299,59 @@ def encode_batch(psdus, rate_mbps: int, add_fcs: bool = False,
                        device=device),
             RATES[rate_mbps], _sym_bucket(n_sym))
     return out[:, :400 + 80 * n_sym]
+
+
+def tx_symbol_pipeline(rate_mbps: int):
+    """The DATA symbols' steady state as a stream program (reference
+    :405): n_dbps raw bits in, 80 time samples out a firing, through
+    three ``map_accum`` stages carrying the scrambler phase, the
+    encoder's last 6 input bits and the pilot index. The stages run on
+    the device of their input."""
+    from ziria_tpu_torch.core import ir
+
+    rate = RATES[rate_mbps]
+    n_dbps, n_cbps, n_bpsc = rate.n_dbps, rate.n_cbps, rate.n_bpsc
+    seq_np = scramble.np_lfsr_sequence_127(
+        _seed_bits_np(DEFAULT_SCRAMBLER_SEED))
+    pol_np = ofdm.PILOT_POLARITY.astype(np.float32)
+    pilots_np = ofdm.PILOT_VALS.astype(np.float32)
+
+    def stage_scramble(phase, bits):
+        bits = torch.as_tensor(bits)
+        dev = bits.device
+        seq = torch.from_numpy(seq_np).to(dev)
+        idx = (torch.as_tensor(phase, device=dev)
+               + torch.arange(n_dbps, device=dev)) % 127
+        return (phase + n_dbps) % 127, bits.to(torch.uint8) ^ seq[idx]
+
+    def stage_encode(tail, bits):
+        bits = torch.as_tensor(bits)
+        ext = torch.cat([torch.as_tensor(tail, device=bits.device),
+                         bits.to(torch.int32)])
+        # from position 6 on no tap reaches the encoder's zero padding
+        coded = coding.conv_encode(ext)[2 * (coding.K - 1):]
+        return ext[-(coding.K - 1):], coding.puncture(coded, rate.coding)
+
+    def stage_map(sym_idx, coded):
+        coded = torch.as_tensor(coded)
+        dev = coded.device
+        syms = modulate.modulate(
+            interleave.interleave(coded, n_cbps, n_bpsc), n_bpsc)
+        pol = torch.from_numpy(pol_np).to(dev)[
+            (torch.as_tensor(sym_idx, device=dev) + 1) % 127]
+        bins = torch.zeros((ofdm.N_FFT, 2), dtype=torch.float32,
+                           device=dev)
+        bins[ofdm._index("data", dev)] = syms
+        p_re = torch.from_numpy(pilots_np).to(dev) * pol
+        bins[ofdm._index("pilot", dev)] = torch.stack(
+            [p_re, torch.zeros_like(p_re)], dim=-1)
+        return sym_idx + 1, ofdm.ofdm_modulate(bins[None])[0]
+
+    return ir.pipe(
+        ir.map_accum(stage_scramble, np.int32(0), in_arity=n_dbps,
+                     out_arity=n_dbps, name="scramble"),
+        ir.map_accum(stage_encode, np.zeros(6, np.int32), in_arity=n_dbps,
+                     out_arity=n_cbps, name="encode"),
+        ir.map_accum(stage_map, np.int32(0), in_arity=n_cbps,
+                     out_arity=80, name="map_ofdm_ifft"),
+    )

@@ -2,8 +2,9 @@
 (counterpart of ziria_tpu/runtime/resilience.py: ``FaultPolicy``,
 ``env_max_retries``, ``default_policy`` :123, ``classify_error``,
 ``backoff_delay``, the watchdog of ``_call_with_watchdog`` :183,
-``guarded`` :215 without its ``fallback``, ``checkpoint_carry`` :306
-and ``restore_carry`` :340).
+``guarded`` :215 without its ``fallback``, ``checkpoint_carry`` :306,
+``restore_carry`` :340, ``save_checkpoint`` :383 and
+``load_checkpoint`` :407).
 
 :func:`guarded` runs a call site behind the chaos seam
 (``faults.maybe_fail``) inside ``dispatch.timed``; transient failures
@@ -35,8 +36,10 @@ import hashlib
 import io
 import json
 import os
+import threading
 import time
 import zlib
+from collections import Counter
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -131,6 +134,21 @@ def backoff_delay(label: str, attempt: int,
     return base * (0.5 + 0.5 * u)
 
 
+_COUNTS: Counter = Counter()
+_CLOCK = threading.Lock()
+
+
+def _count(name: str, n: int = 1) -> None:
+    """A resilience counter: the registry's increment and, in an active
+    trace, a counter track of its running total."""
+    if not telemetry.active():
+        return
+    with _CLOCK:
+        _COUNTS[name] += n
+        tot = _COUNTS[name]
+    telemetry.count(name, n, total=tot)
+
+
 def guarded(label: str, fn: Callable, *args,
             policy: Optional[FaultPolicy] = None) -> Any:
     """``fn(*args)`` as a guarded dispatch at site ``label`` (see the
@@ -148,19 +166,19 @@ def guarded(label: str, fn: Callable, *args,
                         f"its {policy.timeout_s}s watchdog")
                 out = fn(*args)
             if attempt:
-                telemetry.count("resilience.recovered")
+                _count("resilience.recovered")
             return out
         except Exception as e:    # noqa: BLE001 - classified below
             last = e
             kind = classify_error(e)
             if kind == "transient" and attempt < policy.max_retries:
                 d = backoff_delay(label, attempt, policy)
-                telemetry.count("resilience.retries")
+                _count("resilience.retries")
                 telemetry.observe("resilience.backoff_seconds", d)
                 time.sleep(d)
                 continue
             break
-    telemetry.count("resilience.fatal")
+    _count("resilience.fatal")
     raise DispatchFailed(label, attempt + 1, kind, last) from last
 
 
@@ -261,3 +279,31 @@ def restore_carry(data: bytes) -> CarryState:
         ) from e
     return CarryState(tail, off, emitted, watermark, seen, geometry,
                       state)
+
+
+def save_checkpoint(path: str, blob: bytes,
+                    io_site: str = "checkpoint.write") -> None:
+    """Write a checkpoint blob to ``path`` atomically: a temporary file,
+    fsync, rename, then fsync of the directory, so a reader sees the
+    old content or the new and nothing between. The payload passes the
+    durability fault seam (``faults.io_fault``): an injected torn write
+    still lands atomically and fails at restore on its CRC."""
+    from ziria_tpu_torch.runtime.durability import _fsync_dir
+
+    data = faults.io_fault(io_site, bytes(blob))
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    tmp = os.path.join(d, f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(d)
+
+
+def load_checkpoint(path: str) -> CarryState:
+    """Read and validate a checkpoint file written by
+    :func:`save_checkpoint` (or any ``checkpoint_carry`` blob on disk);
+    a torn or corrupt file raises :class:`CarryCheckpointError`."""
+    with open(path, "rb") as f:
+        return restore_carry(f.read())

@@ -2,7 +2,8 @@
 one fixed S-lane fleet (counterpart of ziria_tpu/runtime/serve.py:
 ``ServeConfig`` :90, ``AdmitResult``, ``SubmitResult``, ``ServeStats``,
 ``_Session``, ``ServeRuntime`` :244-1076, ``ClientSpec`` :1081,
-``synth_load`` :1095 and ``run_clients`` :1163).
+``synth_load`` :1095, ``run_clients`` :1163 and ``main`` :1251, the
+``serve`` subcommand).
 
 - **Admission**: a session gets a free lane, waits in a bounded queue,
   or is rejected with a ``retry_after_s`` hint (scaled by the queue
@@ -1029,3 +1030,120 @@ def run_clients(srv: ServeRuntime, clients: List[ClientSpec],
             break
     collect(srv.drain())
     return frames
+
+
+def main(argv=None) -> int:
+    """``python -m ziria_tpu_torch serve``: a synthetic many-client load
+    (``synth_load``) through the real fleet, on the card unless
+    ``--platform=cpu``. A ^C drains the server and still prints the
+    report: one JSON line (sessions, lanes, frames, ``stats()`` and the
+    chunk-step latency summary), and with ``--metrics-dump`` the
+    exposition on stderr."""
+    import argparse
+    import contextlib
+    import json
+    import sys
+
+    p = argparse.ArgumentParser(
+        prog="ziria_tpu_torch serve",
+        description="continuous-batching serving demo on the port's "
+                    "MultiStreamReceiver")
+    p.add_argument("--lanes", type=int, default=4,
+                   help="device lanes S (the fleet width)")
+    p.add_argument("--sessions", type=int, default=6,
+                   help="client sessions to serve")
+    p.add_argument("--frames", type=int, default=2,
+                   help="frames per session")
+    p.add_argument("--chunk-len", type=int, default=4096)
+    p.add_argument("--frame-len", type=int, default=1024)
+    p.add_argument("--slo", type=float, default=None,
+                   help="per-session deadline seconds (default none)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--nan-client", action="store_true",
+                   help="make session 0 push a NaN-poisoned slab "
+                        "(quarantine demo)")
+    p.add_argument("--chaos", metavar="SPEC", default=None,
+                   help="fault-injection spec (utils/faults grammar)")
+    p.add_argument("--channel-profile", metavar="NAME[,NAME...]",
+                   default=None,
+                   help="channel profile(s) of the client load "
+                        "(phy/profiles; a comma list cycles per session)")
+    p.add_argument("--metrics-dump", action="store_true",
+                   help="print the Prometheus exposition to stderr at "
+                        "exit")
+    p.add_argument("--snapshot-dir", metavar="DIR", default=None,
+                   help="durability directory: write-ahead journal and "
+                        "fleet snapshots (--recover resumes from it)")
+    p.add_argument("--snapshot-every", type=int, default=8, metavar="N",
+                   help="chunk-steps between snapshots (with "
+                        "--snapshot-dir; default 8)")
+    p.add_argument("--recover", action="store_true",
+                   help="recover the fleet from --snapshot-dir instead "
+                        "of starting fresh")
+    p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                   help="where the fleet runs: the card (default) or the "
+                        "CPU; with no card it raises unless "
+                        "--platform=cpu is given")
+    args = p.parse_args(argv)
+
+    if args.recover and not args.snapshot_dir:
+        raise SystemExit("--recover needs --snapshot-dir")
+    from ziria_tpu_torch.phy.wifi.rx import check_device
+    device = check_device(args.platform, "serve --platform")
+    cfg = ServeConfig(n_lanes=args.lanes, chunk_len=args.chunk_len,
+                      frame_len=args.frame_len, check_fcs=True,
+                      default_slo_s=args.slo,
+                      snapshot_dir=args.snapshot_dir,
+                      snapshot_every=args.snapshot_every)
+    misbehave = {0: "nan"} if args.nan_client else {}
+    if args.channel_profile is not None:
+        from ziria_tpu_torch.phy.profiles import parse_profile_spec
+        try:
+            parse_profile_spec(args.channel_profile)
+        except ValueError as e:
+            raise SystemExit(f"--channel-profile: {e}")
+    clients = synth_load(args.sessions, args.frames, seed=args.seed,
+                         misbehave=misbehave, tail=args.frame_len,
+                         channel_profile=args.channel_profile,
+                         device=device)
+    chaos = None
+    if args.chaos is not None:
+        try:
+            chaos = faults.parse_chaos_spec(args.chaos)
+        except ValueError as e:
+            raise SystemExit(f"--chaos: {e}")
+
+    srv = ServeRuntime.recover(args.snapshot_dir, config=cfg,
+                               device=device) \
+        if args.recover else ServeRuntime(cfg, device=device)
+    frames: Dict[Any, List] = {}
+    try:
+        with contextlib.ExitStack() as stack:
+            if chaos is not None:
+                specs, seed = chaos
+                stack.enter_context(faults.inject(*specs, seed=seed))
+            stack.enter_context(srv)
+            try:
+                frames = run_clients(srv, clients)
+            except KeyboardInterrupt:
+                # drain: stop admitting, flush what is in flight, fall
+                # through to the report
+                srv.drain()
+                frames = {}
+    finally:
+        st = srv.stats()
+        lat = srv.registry.find("serve.chunk_seconds")
+        report = {
+            "sessions": args.sessions, "lanes": args.lanes,
+            "frames": sum(len(v) for v in frames.values()),
+            "stats": {k: (list(v) if isinstance(v, tuple) else v)
+                      for k, v in st._asdict().items()},
+            "chunk_latency_ms": lat.summary(scale=1e3)
+            if lat is not None else {"count": 0},
+        }
+        print(json.dumps(report))
+        if args.metrics_dump:
+            print("metrics exposition (utils/telemetry):",
+                  file=sys.stderr)
+            print(srv.scrape(), file=sys.stderr, end="")
+    return 0

@@ -6,8 +6,12 @@ ziria_tpu/utils/dispatch.py: the geometry helpers :81-100, ``record``
 :func:`count_dispatches` counts the instrumented sites a block fires:
 every :func:`record` (or :func:`timed` block) inside it adds one to
 its label, every :func:`record_gauge` keeps the level's high-water
-mark. The same events feed any active ``telemetry.collect`` registry.
-When nothing collects, each emitter costs one truthiness check.
+mark. The same events feed any active ``telemetry.collect`` registry,
+and every :func:`timed` block is a span of any active
+``telemetry.tracing`` trace (and, under ``annotate_device``, a
+``torch.profiler.record_function`` range, which is how
+``utils/programs`` attributes kernels to sites). When nothing collects
+or traces, each emitter costs one truthiness check.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ _ACTIVE: List["DispatchCount"] = []
 
 
 def _idle() -> bool:
-    return not (_ACTIVE or _tm._REGISTRIES)
+    return not (_ACTIVE or _tm._REGISTRIES or _tm._TRACES)
 
 
 def pow2_ceil(n: int) -> int:
@@ -82,7 +86,8 @@ def record(label: str = "dispatch", n: int = 1,
         return
     for c in tuple(_ACTIVE):
         c._add(label, n, seconds)
-    _tm.dispatch_event(label, n, seconds)
+    if _tm._REGISTRIES:
+        _tm.dispatch_event(label, n, seconds)
 
 
 def record_gauge(label: str, value: float) -> None:
@@ -99,15 +104,17 @@ def record_gauge(label: str, value: float) -> None:
 def timed(label: str = "dispatch"):
     """``with timed("rx.stream_chunk"): ...``: one dispatch at the site
     plus the block's wall time (on the host clock: on the card, the
-    launch time, not the device's)."""
+    launch time, not the device's); under an active trace also a span
+    of that name."""
     if _idle():
         yield
         return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        record(label, seconds=time.perf_counter() - t0)
+    with _tm.span(label):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            record(label, seconds=time.perf_counter() - t0)
 
 
 @contextmanager

@@ -2,9 +2,9 @@
 seams (counterpart of ziria_tpu/utils/faults.py: ``FaultSpec``,
 ``FaultPlan``, ``inject``, ``active``, ``maybe_fail``, ``corrupt_slab``
 with the ``nan_slab``, ``truncate`` and ``channel`` kinds, ``io_fault``
-:336, and
-the injected error classes; the ``ZIRIA_CHAOS`` grammar waits for the
-CLI that reads it).
+:336, the injected error classes, ``FaultPlan.total_fired`` :202 and
+``fired_sites`` :206, and the ``--chaos`` / ``ZIRIA_CHAOS`` grammar:
+``parse_chaos_spec`` :367 and ``env_chaos`` :418).
 
 :func:`inject` activates a :class:`FaultPlan` for a block. Every
 decision is deterministic by (site, seed, call index), computed as the
@@ -36,7 +36,9 @@ _PLANS: Tuple["FaultPlan", ...] = ()
 DATA_KINDS = ("nan_slab", "truncate", "channel")
 DISPATCH_KINDS = ("transient", "fatal", "delay", "hang")
 IO_KINDS = ("io_torn", "io_enospc")
-KINDS = DATA_KINDS + DISPATCH_KINDS + IO_KINDS
+#: every kind, in the reference's order (its error messages list them)
+KINDS = ("nan_slab", "truncate", "transient", "fatal", "delay", "hang",
+         "io_torn", "io_enospc", "channel")
 
 
 class InjectedFault(Exception):
@@ -128,6 +130,19 @@ class FaultPlan:
                     self.fired.append((site, sp.kind, idx))
                     return sp, idx
         return None
+
+    @property
+    def total_fired(self) -> int:
+        with self._lock:
+            return len(self.fired)
+
+    def fired_sites(self) -> Dict[str, int]:
+        """site -> how many faults fired there."""
+        out: Dict[str, int] = {}
+        with self._lock:
+            for s, _k, _i in self.fired:
+                out[s] = out.get(s, 0) + 1
+        return out
 
 
 def active() -> bool:
@@ -259,3 +274,65 @@ def io_fault(site: str, data: bytes) -> bytes:
         keep = min(len(data) - 1, int(len(data) * (1.0 - sp.fraction)))
         data = data[: max(0, keep)]
     return data
+
+
+def parse_chaos_spec(text: str) -> Tuple[Tuple[FaultSpec, ...], int]:
+    """The ``--chaos`` / ``ZIRIA_CHAOS`` grammar, semicolon-separated
+    ``[seed=N;]site:kind[:key=val,...]`` items (keys ``every``,
+    ``calls`` as ``i+j``, ``p``, ``count``, ``delay``, ``frac``,
+    ``profile``; a bare item fires every call), as ``(specs, seed)``.
+    A malformed spec raises ValueError, validated as a plan would be."""
+    specs: List[FaultSpec] = []
+    seed = 0
+    for item in (s.strip() for s in text.split(";")):
+        if not item:
+            continue
+        if item.startswith("seed="):
+            seed = int(item[5:])
+            continue
+        parts = item.split(":")
+        if len(parts) < 2:
+            raise ValueError(
+                f"chaos spec {item!r}: want site:kind[:key=val,...]")
+        site, kind = parts[0], parts[1]
+        kw: Dict[str, object] = {}
+        for opt in ":".join(parts[2:]).split(","):
+            opt = opt.strip()
+            if not opt:
+                continue
+            if "=" not in opt:
+                raise ValueError(f"chaos option {opt!r}: want key=val")
+            k, v = opt.split("=", 1)
+            if k == "every":
+                kw["every"] = int(v)
+            elif k == "calls":
+                kw["calls"] = tuple(int(c) for c in v.split("+"))
+            elif k == "p":
+                kw["p"] = float(v)
+            elif k == "count":
+                kw["count"] = int(v)
+            elif k == "delay":
+                kw["delay_s"] = float(v)
+            elif k == "frac":
+                kw["fraction"] = float(v)
+            elif k == "profile":
+                kw["profile"] = v
+            else:
+                raise ValueError(f"unknown chaos option {k!r}")
+        if not (kw.get("calls") or kw.get("every") or kw.get("p")):
+            kw["every"] = 1
+        specs.append(FaultSpec(site=site, kind=kind, **kw))
+    FaultPlan(specs, seed=seed)
+    return tuple(specs), seed
+
+
+def env_chaos() -> Optional[Tuple[Tuple[FaultSpec, ...], int]]:
+    """ZIRIA_CHAOS (the CLI's ``--chaos`` writes it for one
+    invocation): ``(specs, seed)`` of the described fault plan, or None
+    when unset or empty."""
+    import os
+
+    text = os.environ.get("ZIRIA_CHAOS")
+    if not text:
+        return None
+    return parse_chaos_spec(text)

@@ -3,8 +3,13 @@ its decode knobs and the :class:`Geometry` object that gathers every
 tunable (counterpart of ziria_tpu/utils/geometry.py: the knobs' legal
 values :63-65, the readers ``env_viterbi_window``,
 ``env_viterbi_metric``, ``env_viterbi_radix``, ``env_fused_demap`` and
-``env_sco_track``, :80-134, and ``Geometry`` :153-280 without
-``tuned``)."""
+``env_sco_track``, :80-134, ``env_trajectory_path`` :137, ``Geometry``
+:153-280 with ``tuned`` :258, ``detect_device_kind`` :283 and
+``latest_tuned_record`` :295).
+
+The autotuner's winners live in the port's own record file,
+``TUNED_BASENAME`` at the repo root (``ZIRIA_TORCH_TUNED`` names another
+one), never in the reference's ``BENCH_TRAJECTORY.jsonl``."""
 
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ VITERBI_RADIXES = (2, 4)
 
 SYM_BUCKET_MIN = 4
 CAPTURE_BUCKET_MIN = 512
+
+#: the autotuner's record file, one JSON object a line, at the repo root
+TUNED_BASENAME = "TORCH_TUNED.jsonl"
 
 
 def sym_bucket(n_sym: int) -> int:
@@ -81,6 +89,17 @@ def env_sco_track() -> bool:
     """ZIRIA_RX_SCO_TRACK (default off): pilot phase-ramp tracking for
     a sampling-clock offset."""
     return os.environ.get("ZIRIA_RX_SCO_TRACK", "0") == "1"
+
+
+def env_trajectory_path() -> str:
+    """The autotuner's record file: ZIRIA_TORCH_TUNED, else
+    ``TUNED_BASENAME`` at the repo root next to this package."""
+    p = os.environ.get("ZIRIA_TORCH_TUNED")
+    if p:
+        return p
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(root, TUNED_BASENAME)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +187,65 @@ class Geometry:
     def from_json(cls, s: str) -> "Geometry":
         return cls.from_dict(json.loads(s))
 
+    @classmethod
+    def tuned(cls, device_kind: Optional[str] = None,
+              path: Optional[str] = None) -> "Geometry":
+        """The newest autotuner winner recorded for ``device_kind``
+        (default: this process's card), or ``Geometry()`` when there is
+        no record file, no matching record or one this build cannot
+        parse. Never raises: a tuned geometry is an optimization."""
+        try:
+            if device_kind is None:
+                device_kind = detect_device_kind()
+            rec = latest_tuned_record(device_kind, path)
+            if rec is None:
+                return cls()
+            return cls.from_dict(rec["geometry"])
+        except Exception:
+            return cls()
+
 
 #: the shared default instance
 DEFAULT = Geometry()
+
+
+def detect_device_kind() -> Optional[str]:
+    """``torch.cuda.get_device_name(0)``, or None without a card."""
+    try:
+        import torch
+
+        if not torch.cuda.is_available():
+            return None
+        return torch.cuda.get_device_name(0)
+    except Exception:
+        return None
+
+
+def latest_tuned_record(device_kind: Optional[str],
+                        path: Optional[str] = None) -> Optional[Dict]:
+    """The newest ``stage=autotune`` record of the record file whose
+    ``device_kind`` matches (None matches None: a file written where no
+    card was named serves that same environment), or None."""
+    p = path or env_trajectory_path()
+    best = None
+    try:
+        with open(p, "r", encoding="utf-8") as fh:
+            for line in fh:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if not isinstance(rec, dict) \
+                        or rec.get("stage") != "autotune" \
+                        or "geometry" not in rec \
+                        or rec.get("device_kind") != device_kind:
+                    continue
+                if best is None or rec.get("unix", 0) >= best.get(
+                        "unix", 0):
+                    best = rec
+    except OSError:
+        return None
+    return best

@@ -1,21 +1,40 @@
-"""Metrics registry behind the receivers' counters and the server's
-scrape page (counterpart of the metrics half of
-ziria_tpu/utils/telemetry.py: the log-bucket ``Histogram`` :87,
-``CounterMetric``, the time-series ``Gauge``, ``MetricsRegistry``
-:219-317 with ``snapshot`` and the Prometheus ``exposition``,
-``collect`` :494, ``observe`` :554 and ``count`` :567).
+"""Runtime telemetry: span traces and a metrics registry behind every
+dispatch site (counterpart of ziria_tpu/utils/telemetry.py: the
+log-bucket ``Histogram`` :87, ``CounterMetric``, the time-series
+``Gauge``, ``MetricsRegistry`` :219-317 with ``snapshot`` and the
+Prometheus ``exposition``, ``Trace`` :323, ``span`` :422, ``tracing``
+:472, ``collect`` :494, ``env_trace_path`` :509, ``observe`` :554,
+``count`` :567 and ``record_compile`` :586).
 
-:func:`collect` activates a :class:`MetricsRegistry` for a block; every
-:func:`count`, :func:`observe` and gauge sample recorded while it is
-active lands in it. When nothing collects, every emitter costs one
-truthiness check. Histograms keep the reference's power-of-two buckets,
-so a quantile, a summary and the exposition text are the reference's
-for the same observations. There are no spans and no trace export.
+- **Span tracing.** :func:`tracing` activates a :class:`Trace`;
+  :func:`span` (and every ``dispatch.timed`` site) records nested,
+  per-thread spans with monotonic timestamps. :meth:`Trace.export`
+  writes the reference's Chrome trace-event JSON (complete ``X`` spans,
+  ``C`` counter tracks, ``compile`` events, top-level riders), which
+  Perfetto, ``chrome://tracing`` and ``tools/trace_report.py`` read.
+  ``Trace(annotate_device=True)`` also opens a
+  ``torch.profiler.record_function`` range per span, so a concurrent
+  ``torch.profiler`` capture shows the same labels.
+- **Metrics.** :func:`collect` activates a :class:`MetricsRegistry`;
+  every :func:`count`, :func:`observe` and gauge sample recorded while
+  it is active lands in it. Histograms keep the reference's
+  power-of-two buckets, so a quantile, a summary and the exposition
+  text are the reference's for the same observations.
+- **Compile events.** The port's only compiles are the nvcc builds of
+  ``cuda_build``; each reports itself through :func:`record_compile`
+  as a span in the ``compile`` category. The reference's
+  ``jax.monitoring`` listener (:615-647) has no counterpart: eager
+  torch compiles nothing else.
+
+When nothing traces or collects, every emitter costs one truthiness
+check.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
 import time
 from collections import deque
@@ -23,11 +42,19 @@ from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple
 
 _LOCK = threading.Lock()      # guards (de)activation only
+_TRACES: Tuple["Trace", ...] = ()
 _REGISTRIES: Tuple["MetricsRegistry", ...] = ()
 
 DISPATCH_COUNTER = "ziria_dispatches_total"
 DISPATCH_HISTOGRAM = "ziria_dispatch_seconds"
 GAUGE_METRIC = "ziria_gauge"
+COMPILE_COUNTER = "ziria_compile_events_total"
+COMPILE_HISTOGRAM = "ziria_compile_seconds"
+
+
+def active() -> bool:
+    """True when any trace or registry is collecting."""
+    return bool(_TRACES or _REGISTRIES)
 
 
 def _bucket_exp(v: float) -> int:
@@ -250,6 +277,138 @@ class MetricsRegistry:
         return "\n".join(lines) + ("\n" if lines else "")
 
 
+class Trace:
+    """Chrome trace-event collector. Spans land as complete (``X``)
+    events with microsecond timestamps relative to the trace's own
+    monotonic epoch, gauges as counter (``C``) tracks, compile events
+    in the ``compile`` category. :meth:`export` writes the standard
+    ``{"traceEvents": [...]}`` object."""
+
+    def __init__(self, annotate_device: bool = False) -> None:
+        self.annotate_device = annotate_device
+        self._lock = threading.Lock()
+        self._events: List[Dict[str, Any]] = []
+        self._meta: Dict[str, Any] = {}
+        self._epoch = time.perf_counter()
+        self._pid = os.getpid()
+
+    def _ts(self, t: float) -> float:
+        return (t - self._epoch) * 1e6          # us, trace-relative
+
+    def add_event(self, ev: Dict[str, Any]) -> None:
+        with self._lock:
+            self._events.append(ev)
+
+    def complete(self, name: str, t0: float, dur_s: float,
+                 tid: Optional[int] = None, args: Optional[dict] = None,
+                 cat: str = "host") -> None:
+        """A finished span: began at monotonic ``t0``, ran ``dur_s``."""
+        ev = {"name": name, "ph": "X", "cat": cat,
+              "ts": self._ts(t0), "dur": dur_s * 1e6,
+              "pid": self._pid,
+              "tid": threading.get_ident() if tid is None else tid}
+        if args:
+            ev["args"] = args
+        self.add_event(ev)
+
+    def instant(self, name: str, args: Optional[dict] = None,
+                cat: str = "host") -> None:
+        ev = {"name": name, "ph": "i", "s": "t", "cat": cat,
+              "ts": self._ts(time.perf_counter()), "pid": self._pid,
+              "tid": threading.get_ident()}
+        if args:
+            ev["args"] = args
+        self.add_event(ev)
+
+    def counter(self, name: str, value: float) -> None:
+        """One sample of a counter track (a gauge level over time)."""
+        self.add_event({"name": name, "ph": "C",
+                        "ts": self._ts(time.perf_counter()),
+                        "pid": self._pid, "args": {"value": value}})
+
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return list(self._events)
+
+    def set_metadata(self, key: str, value: Any) -> None:
+        """A top-level key of the exported object (the format ignores
+        unknown keys; ``tools/trace_report.py`` reads ``siteCosts`` and
+        ``devicePeaks``)."""
+        with self._lock:
+            self._meta[key] = value
+
+    def to_json(self) -> Dict[str, Any]:
+        obj: Dict[str, Any] = {"traceEvents": self.events(),
+                               "displayTimeUnit": "ms"}
+        with self._lock:
+            obj.update(self._meta)
+        return obj
+
+    def export(self, path: Optional[str] = None) -> Dict[str, Any]:
+        """The trace as a Chrome trace-event object, written to
+        ``path`` when given."""
+        obj = self.to_json()
+        if path:
+            with open(path, "w") as f:
+                json.dump(obj, f)
+        return obj
+
+
+@contextmanager
+def span(name: str, args: Optional[dict] = None):
+    """``with span("rx.stream_chunk"): ...``: the block as one span in
+    every active trace; under a trace built with
+    ``annotate_device=True`` also a ``torch.profiler.record_function``
+    range of the same name. Free when no trace is active."""
+    traces = _TRACES
+    if not traces:
+        yield
+        return
+    ann = None
+    if any(t.annotate_device for t in traces):
+        import torch
+        ann = torch.profiler.record_function(name)
+        ann.__enter__()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dur = time.perf_counter() - t0
+        if ann is not None:
+            ann.__exit__(None, None, None)
+        for t in traces:
+            t.complete(name, t0, dur, args=args)
+
+
+def _without_last(sinks: Tuple, x) -> Tuple:
+    """``sinks`` minus its last occurrence of ``x`` (nested activations
+    of one object stay balanced)."""
+    for i in range(len(sinks) - 1, -1, -1):
+        if sinks[i] is x:
+            return sinks[:i] + sinks[i + 1:]
+    return sinks
+
+
+@contextmanager
+def tracing(path: Optional[str] = None, annotate_device: bool = False,
+            trace: Optional[Trace] = None):
+    """Activate a :class:`Trace` (a fresh one, or ``trace``) for the
+    block; on exit deactivate it and, with ``path``, export it there,
+    also when the block raised."""
+    global _TRACES
+    t = trace if trace is not None else Trace(
+        annotate_device=annotate_device)
+    with _LOCK:
+        _TRACES = _TRACES + (t,)
+    try:
+        yield t
+    finally:
+        with _LOCK:
+            _TRACES = _without_last(_TRACES, t)
+        if path:
+            t.export(path)
+
+
 @contextmanager
 def collect(registry: Optional[MetricsRegistry] = None):
     """Activate a :class:`MetricsRegistry` for the block; yields it."""
@@ -261,9 +420,14 @@ def collect(registry: Optional[MetricsRegistry] = None):
         yield r
     finally:
         with _LOCK:
-            lst = list(_REGISTRIES)
-            del lst[len(lst) - 1 - lst[::-1].index(r)]
-            _REGISTRIES = tuple(lst)
+            _REGISTRIES = _without_last(_REGISTRIES, r)
+
+
+def env_trace_path() -> Optional[str]:
+    """ZIRIA_TRACE (the CLI's ``--trace`` writes it for one
+    invocation): a path means "trace this run and export the Chrome
+    trace there"."""
+    return os.environ.get("ZIRIA_TRACE") or None
 
 
 def dispatch_event(label: str, n: int = 1,
@@ -277,12 +441,15 @@ def dispatch_event(label: str, n: int = 1,
 
 
 def gauge_sample(label: str, value: float) -> None:
-    """One level sample into every active registry."""
-    if not _REGISTRIES:
+    """One level sample: a time-series point in every active registry
+    and a counter-track event in every active trace."""
+    if not (_TRACES or _REGISTRIES):
         return
     t = time.perf_counter()
     for r in _REGISTRIES:
         r.gauge(GAUGE_METRIC, site=label).set(value, t)
+    for tr in _TRACES:
+        tr.counter(label, value)
 
 
 def observe(name: str, value: float,
@@ -292,9 +459,36 @@ def observe(name: str, value: float,
         r.histogram(name, **(labels or {})).observe(value)
 
 
-def count(name: str, n: int = 1,
+def count(name: str, n: int = 1, total: Optional[float] = None,
           labels: Optional[Dict[str, str]] = None) -> None:
     """An event counter into every active registry, one series per
-    label set."""
+    label set; with the caller's cumulative ``total``, also a
+    counter-track sample in every active trace."""
     for r in _REGISTRIES:
         r.counter(name, **(labels or {})).inc(n)
+    if total is not None:
+        for tr in _TRACES:
+            tr.counter(name, total)
+
+
+def record_compile(label: str, seconds: Optional[float] = None,
+                   n: int = 1, args: Optional[dict] = None) -> None:
+    """A compile event: with ``seconds``, a span of the ``compile``
+    category ending now; without, an instant marker carrying ``n``.
+    Registries get the counter and, when timed, the latency
+    histogram."""
+    if not (_TRACES or _REGISTRIES):
+        return
+    now = time.perf_counter()
+    for t in _TRACES:
+        if seconds:
+            t.complete(label, now - seconds, seconds, cat="compile",
+                       args=args)
+        else:
+            a = dict(args or {})
+            a.setdefault("count", n)
+            t.instant(label, args=a, cat="compile")
+    for r in _REGISTRIES:
+        r.counter(COMPILE_COUNTER, event=label).inc(n)
+        if seconds:
+            r.histogram(COMPILE_HISTOGRAM, event=label).observe(seconds)
