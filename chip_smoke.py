@@ -160,7 +160,9 @@ Phases, each printing one JSON line:
    samples/s;
 11. compiler: the Ziria compiler of the port, through its CLI
    (``python -m ziria_tpu_torch``'s ``main``, ``--platform=cuda``):
-   the 28 golden cases of ``examples/make_golden.py``
+   the ``--ddump-hybrid`` plan of ``examples/wifi_rx.zir``, whose
+   stream-control loops must be the reference's chunk machines (1
+   While, 32 For, in order: ``COMPILER_MACHINES``); the 28 golden cases of ``examples/make_golden.py``
    (``COMPILER_CASES``: 22 on the jit backend, ``wifi_tx_full``,
    ``wifi_tx_rates``, ``wifi_loopback`` and ``wifi_loopback_fxp`` on
    the interpreter, ``wifi_rx`` and ``wifi_rx_fxp`` on the hybrid
@@ -176,11 +178,33 @@ Phases, each printing one JSON line:
    default decode (the scan decoder, no kernel) and once with
    ``--viterbi-window=1024`` (the ACS and traceback kernels, each
    launched at least once, each held bitwise to its plain version at
-   its own inputs); the payload must come out right. Each run reports
-   the backend that ran, host ms, items in and out, do-blocks on the
-   device and on the host, device-loop iterations, host syncs,
-   viterbi_soft decodes and launches;
-12. fxp: the fixed-point path. Every ``ops/fxp`` primitive (the
+   its own inputs); the payload must come out right. The first such
+   run also runs every chunk-machine step eagerly at the same inputs
+   and holds the captured graph's step to it bitwise (it, pos, out_n,
+   emitted items and carries of every lane). Each run reports the
+   backend that ran, host ms (beside ``COMPILER_BEFORE_S``, the frame
+   time before the loops ran as chunk machines), items in and out,
+   do-blocks on the device and on the host, device-loop iterations,
+   host syncs, viterbi_soft decodes, launches and the chunk machines'
+   steps, captures, replays and host reads. No run of this phase, of
+   the batch phase or of the ``wifi_rx`` trace may demote a chunk
+   machine to the interpreter;
+12. batch: frame batching, the packet search and the vectorizer through
+   the CLI. ``--batch-input-files`` over ``BATCH_CAPS`` 24 Mbit/s
+   captures of 60 bytes + FCS, default and ``--viterbi-window=64``
+   (short enough to window a 60-byte frame): every output equal to its
+   lone run (the program as the CLI builds it, one capture at a time)
+   and to its PSDU, the batch's chunk-machine steps at most
+   twice a lone frame's, launches zeroed just before each batch and
+   read just after (none by default; ACS and traceback windowed, each
+   held bitwise to its plain version at the batch's own inputs);
+   ``--scan`` over a capture of one packet per ``SCAN_RATES`` rate
+   (12-100 bytes + FCS, 900-sample noise gaps): every PSDU back, found
+   where it was put; again with one packet's DATA negated: the other
+   seven; ``--ddump-vect`` on ``scrambler.zir``, and ``run_vect`` of a
+   static integer pipeline at the card's model constants equal to the
+   CPU's; frames, steps, replays, host reads and ms;
+13. fxp: the fixed-point path. Every ``ops/fxp`` primitive (the
    float64 DFT products included) and ``ext_math`` function on the card
    bitwise equal to the CPU; ``rx_fxp.decode_data_batch_fxp`` on 128
    frames at the reference benchmark's fxp stage geometry (a 1000-byte
@@ -197,7 +221,7 @@ Phases, each printing one JSON line:
    Times: batch ms (host clock, 3 reps), samples/s as ``bench.py``'s
    ``sps`` (128 * frame_len / batch seconds), CUDA-event ms of the
    front and of the decode, peak device memory;
-13. observe: the CLI's run and serve surface, tracing, the program
+14. observe: the CLI's run and serve surface, tracing, the program
    observatory and the autotuner, each through ``runtime/cli.main`` on
    the card. ``serve`` at the reference's defaults (4 lanes, 6 sessions
    of 2 frames, chunk 4096, frame 1024), then under a ``--chaos`` plan
@@ -228,7 +252,7 @@ Phases, each printing one JSON line:
    ms. ``autotune --frames 8 --reps 2`` into a record file of
    its own: the winner identity-clean, ``Geometry.tuned`` reproducing
    it, no file of the checkout changed. At most ``OBSERVE_BUDGET_S``;
-14. timing: ``receive_many`` in every decode mode, the modes in turns
+15. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -241,7 +265,8 @@ Phases, each printing one JSON line:
    it can; the traceback also on the fused path's words (zero past each
    frame's stop).
 
-Then a ``{"kernels": [...]}`` line, the script's wall time, the
+Phases 5-14 also print their wall seconds (``phase_s``). Then a
+``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
 non-zero without that line. It imports nothing of JAX or of the JAX
@@ -377,6 +402,28 @@ COMPILER_RATES = (54, 6)
 COMPILER_BYTES = 1000
 COMPILER_SEED = 20261017
 COMPILER_WINDOW = 1024
+# seconds of a full-width wifi_rx.zir frame through the CLI before its
+# loops ran as chunk machines (PERF.md §5), printed beside today's
+COMPILER_BEFORE_S = "7.4-20.3"
+# the plan of examples/wifi_rx.zir's stream-control loops: the
+# reference's --ddump-hybrid (1 While, 32 For), in order
+COMPILER_MACHINES = ("chunked While",) + ("chunked For",) * 32
+# the batch phase: --batch-input-files over BATCH_CAPS impaired
+# captures (tests/test_framebatch.py:127: 24 Mbit/s, 60 bytes + FCS,
+# seeds 100 + k), default and windowed; then --scan over SCAN_RATES,
+# one packet each of 12-100 bytes + FCS, between 900-sample noise gaps
+# (tests/test_search.py:58), and again with one packet's DATA negated
+BATCH_CAPS = 16
+BATCH_MBPS = 24
+BATCH_BYTES = 60
+BATCH_SEED = 100
+# a window short enough that a 60-byte frame's decode windows (and
+# launches the ACS and traceback kernels), as OBSERVE_WINDOW
+BATCH_WINDOW = 64
+SCAN_RATES = (6, 9, 12, 18, 24, 36, 48, 54)
+SCAN_GAP = 900
+SCAN_SEED = 700
+SCAN_CORRUPT = 3          # the packet whose DATA the second scan negates
 # the compiler phase's --state-out/--state-in round trip (scrambler.zir)
 STATE_BITS = 4096
 STATE_SPLIT = 1500
@@ -450,6 +497,14 @@ KERNELS = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def emit_timed(obj, t0: float) -> float:
+    """Print a phase's line with its wall seconds since `t0`; returns
+    the time the next phase starts at."""
+    now = time.perf_counter()
+    emit(dict(obj, phase_s=now - t0))
+    return now
 
 
 def check(cond: bool, what: str) -> None:
@@ -2190,6 +2245,8 @@ def observe_phase(rng, dev, card):
         check(launches.get("acs", 0) >= 1
               and launches.get("traceback", 0) >= 1,
               f"wifi_rx windowed: launches {launches}")
+        check(cli.LAST_RUN["chunk"]["demoted"] == 0,
+              "wifi_rx --trace: a chunk machine was demoted")
         traces["wifi_rx"] = dict(ms=ms, window=OBSERVE_WINDOW,
                                  events=len(evs), spans=spans,
                                  compiles=compiles, launches=launches)
@@ -2403,6 +2460,8 @@ def run_zir(src, infile, mode, backend, outfile, platform, extra=()):
     got = read_stream(StreamSpec(ty=prog.out_ty, path=outfile, mode=mode))
     run = dict(cli.LAST_RUN)
     run["ms"] = run.pop("seconds") * 1e3
+    check(run["chunk"]["demoted"] == 0,
+          f"{src}: {run['chunk']['demoted']} chunk machines demoted")
     return got, prog.out_ty, run
 
 
@@ -2464,16 +2523,289 @@ def state_roundtrip(rng, tmpdir, platform):
                 equal_to_one_shot=True)
 
 
+def compiler_plan(dev) -> dict:
+    """The port's --ddump-hybrid of examples/wifi_rx.zir (folded, as
+    the CLI runs it): its loops must be COMPILER_MACHINES, the
+    reference's plan. Returns the machine counts."""
+    from ziria_tpu_torch.backend import hybrid
+    from ziria_tpu_torch.core.opt import fold
+    from ziria_tpu_torch.frontend import compile_file
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    lines = []
+    hybrid.hybridize(fold(compile_file(os.path.join(
+        here, "examples", "wifi_rx.zir")).comp), dump=lines.append,
+        device=dev)
+    loops = tuple(ln.strip() for ln in lines
+                  if "chunked" in ln or ln.lstrip().startswith("loop "))
+    check(loops == COMPILER_MACHINES,
+          f"compiler: the wifi_rx.zir plan's loops are {loops}")
+    return {"While": loops.count("chunked While"),
+            "For": loops.count("chunked For")}
+
+
+class GraphHeldToEager:
+    """While active, every chunk-machine step (backend/chunked
+    ._Machine.run) runs twice at the same lanes: the eager masked loop,
+    then the captured graph, whose result the run goes on with; the
+    two must agree bitwise in it/pos/out_n, the emitted items and every
+    carry of every lane."""
+
+    def __init__(self):
+        self.steps, self.lanes, self.mismatch = 0, 0, []
+
+    def __enter__(self):
+        import torch
+
+        from ziria_tpu_torch.backend import chunked
+        self.cls, self.real = chunked._Machine, chunked._Machine.run
+
+        def both(mach, lanes, graphs=None):
+            eager = self.real(mach, lanes, graphs=False)
+            graph = self.real(mach, lanes, graphs=True)
+            for a, b in zip(eager, graph):
+                same = a[:3] == b[:3] and (
+                    (a[3] is None and b[3] is None)
+                    or np.array_equal(a[3], b[3])) and all(
+                    torch.equal(x, y) for x, y in zip(a[4], b[4]))
+                if not same:
+                    self.mismatch.append(mach.node.orig.label())
+            self.steps += 1
+            self.lanes += len(lanes)
+            return graph
+        self.cls.run = both
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.real
+
+    def report(self) -> dict:
+        return {"steps": self.steps, "lanes": self.lanes,
+                "mismatch": self.mismatch}
+
+
+def scan_capture(rng, dev, corrupt=None):
+    """One packet per rate of SCAN_RATES (PSDUs of 12-100 bytes + FCS,
+    ``channel.impaired_capture`` without its own lead and tail) between
+    SCAN_GAP-sample noise gaps, int16 IQ; with `corrupt`, that packet's
+    DATA is negated over 16 samples. Returns (capture, PSDUs, starts)."""
+    from ziria_tpu_torch.phy import channel
+
+    def gap(n):
+        return np.clip(np.round(rng.normal(scale=20.0, size=(n, 2))),
+                       -32768, 32767).astype(np.int16)
+
+    parts, psdus, starts = [gap(SCAN_GAP)], [], []
+    pos = SCAN_GAP
+    for k, mbps in enumerate(SCAN_RATES):
+        nb = int(rng.integers(12, 101))
+        psdu, xi = channel.impaired_capture(
+            mbps, nb, seed=SCAN_SEED + k, cfo=0.001, pre=0, post=0,
+            noise=0.02, add_fcs=True, device=dev)
+        xi = np.asarray(xi)
+        if k == corrupt:
+            xi = np.array(xi)
+            xi[500:516] = -xi[500:516]
+        psdus.append(np.asarray(psdu))
+        starts.append(pos)
+        parts += [xi, gap(SCAN_GAP)]
+        pos += xi.shape[0] + SCAN_GAP
+    return np.concatenate(parts), psdus, starts
+
+
+def batch_phase(rng, dev, card):
+    """Frame batching, the packet search and the vectorizer on the
+    card. ``--batch-input-files`` over BATCH_CAPS captures, default and
+    ``--viterbi-window``: every output equal to its lone run (the
+    program as the CLI builds it, one capture at a time) and to its
+    PSDU, the batch's chunk-machine steps at most 2x a lone run's
+    on average, launch counts zeroed just before each batch and read
+    just after, the windowed batch's ACS and traceback held bitwise to
+    their plain versions at their own inputs. ``--scan`` over a capture
+    of one packet per SCAN_RATES rate: every packet's PSDU back, found
+    where it was put; again with one packet's DATA negated: the other 7.
+    The vectorizer: ``--ddump-vect`` runs, and ``run_vect`` of a static
+    integer pipeline gives the CPU's output. Returns (the phase's JSON
+    object, the batches' launches, the kernel checks)."""
+    import tempfile
+
+    import torch
+
+    import ziria_tpu_torch as z
+    from ziria_tpu_torch.backend import chunked, hybrid
+    from ziria_tpu_torch.backend.execute import run_vect
+    from ziria_tpu_torch.core import vectorize as V
+    from ziria_tpu_torch.core.opt import fold
+    from ziria_tpu_torch.frontend import compile_file
+    from ziria_tpu_torch.interp.interp import run as interp_run
+    from ziria_tpu_torch.ops import viterbi_cuda as vc
+    from ziria_tpu_torch.phy import channel
+    from ziria_tpu_torch.runtime import cli
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream, \
+        write_stream
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, "examples", "wifi_rx.zir")
+    platform = torch.device(dev).type
+    out = {"phase": "batch", "card": card, "frames": BATCH_CAPS,
+           "mbps": BATCH_MBPS, "psdu_bytes": BATCH_BYTES}
+    launches, checks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        caps, ins, frames = [], [], []
+        for k in range(BATCH_CAPS):
+            psdu, xi = channel.impaired_capture(
+                BATCH_MBPS, BATCH_BYTES, seed=BATCH_SEED + k, add_fcs=True,
+                device=dev)
+            caps.append(np.unpackbits(np.asarray(psdu), bitorder="little"))
+            ins.append(os.path.join(tmp, f"cap{k}.bin"))
+            write_stream(StreamSpec(ty="complex16", path=ins[-1],
+                                    mode="bin"), np.asarray(xi))
+            frames.append(read_stream(StreamSpec(ty="complex16",
+                                                 path=ins[-1], mode="bin")))
+        # the lone runs: the program as the CLI runs it (folded,
+        # hybridized), each capture alone, in this process
+        hyb = hybrid.hybridize(fold(compile_file(src).comp), device=dev)
+        for how, extra in (("default", ()), ("windowed", (
+                f"--viterbi-window={BATCH_WINDOW}",))):
+            env = {"ZIRIA_VITERBI_WINDOW": str(BATCH_WINDOW)} if extra \
+                else {}
+            prev = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                chunked.reset_counts()
+                t0 = time.perf_counter()
+                lone = [np.asarray(interp_run(hyb, [p for p in x]).out_array(),
+                                   np.uint8) for x in frames]
+                ms = (time.perf_counter() - t0) * 1e3
+                calls = chunked.STATS["device_calls"]
+                check(not chunked.DEMOTED,
+                      f"batch {how}: lone runs demoted {chunked.DEMOTED}")
+            finally:
+                for k, v in prev.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            outs = [os.path.join(tmp, f"{how}{k}.out")
+                    for k in range(BATCH_CAPS)]
+            tap = KernelTap([(vc, "acs"), (vc, "traceback")])
+            torch.cuda.synchronize()
+            with tap:
+                rc = cli.main([f"--src={src}", f"--platform={platform}",
+                               "--input-file-mode=bin",
+                               "--output-file-mode=bin",
+                               f"--batch-input-files={','.join(ins)}",
+                               f"--batch-output-files={','.join(outs)}",
+                               *extra])
+            check(rc == 0, f"batch {how}: the CLI returned {rc}")
+            rec = dict(cli.LAST_RUN)
+            name = f"batch_{how}"
+            check(rec["chunk"]["demoted"] == 0,
+                  f"{name}: {rec['chunk']['demoted']} chunk machines "
+                  f"demoted")
+            launches[name] = dict(rec["launches"])
+            right = 0
+            for f, want, single in zip(outs, caps, lone):
+                got = read_stream(StreamSpec(ty="bit", path=f, mode="bin"))
+                check(np.array_equal(got, single),
+                      f"{name}: an output differs from its lone run")
+                right += int(np.array_equal(got, want))
+            check(right == BATCH_CAPS,
+                  f"{name}: {right} of {BATCH_CAPS} PSDUs right")
+            single_avg = calls / BATCH_CAPS
+            check(rec["device_calls"] <= 2 * single_avg,
+                  f"{name}: {rec['device_calls']} steps against "
+                  f"{single_avg} a lone frame")
+            if how == "windowed":
+                check(launches[name].get("acs", 0) >= 1
+                      and launches[name].get("traceback", 0) >= 1,
+                      f"{name}: launches {launches[name]}")
+                checks[name] = stream_kernel_checks(torch, name, tap, False)
+            else:
+                check(not launches[name],
+                      f"{name}: launches {launches[name]}")
+            out[how] = {"right": right, "device_calls": rec["device_calls"],
+                        "group_sizes": rec["group_sizes"],
+                        "single_device_calls_avg": single_avg,
+                        "replays": rec["replays"],
+                        "host_reads": rec["host_reads"],
+                        "ms": rec["seconds"] * 1e3,
+                        "lone_ms": ms, "launches": launches[name],
+                        "demoted": rec["chunk"]["demoted"]}
+
+        scans = {}
+        for name, corrupt in (("scan", None), ("scan_corrupt",
+                                               SCAN_CORRUPT)):
+            cap, psdus, starts = scan_capture(
+                np.random.default_rng(SCAN_SEED), dev, corrupt)
+            inf = os.path.join(tmp, f"{name}.bin")
+            outf = os.path.join(tmp, f"{name}.out")
+            write_stream(StreamSpec(ty="complex16", path=inf, mode="bin"),
+                         cap)
+            rc = cli.main(["--scan", f"--platform={platform}",
+                           f"--input-file-name={inf}",
+                           "--input-file-mode=bin",
+                           f"--output-file-name={outf}",
+                           "--output-file-mode=bin"])
+            check(rc == 0, f"{name}: the CLI returned {rc}")
+            found = cli.LAST_RUN["packets"]
+            check(cli.LAST_RUN["chunk"]["demoted"] == 0,
+                  f"{name}: {cli.LAST_RUN['chunk']['demoted']} chunk "
+                  f"machines demoted")
+            keep = [k for k in range(len(psdus)) if k != corrupt]
+            want = np.concatenate([np.unpackbits(psdus[k],
+                                                 bitorder="little")
+                                   for k in keep])
+            got = read_stream(StreamSpec(ty="bit", path=outf, mode="bin"))
+            check(len(found) == len(keep) and np.array_equal(got, want),
+                  f"{name}: {len(found)} packets back of {len(keep)}")
+            for s, k in zip(found, keep):
+                check(starts[k] - 64 <= s <= starts[k] + 160,
+                      f"{name}: packet {k} found at {s}, put at "
+                      f"{starts[k]}")
+            scans[name] = {"packets": len(found), "expected": len(keep),
+                           "samples": int(cap.shape[0]),
+                           "ms": cli.LAST_RUN["seconds"] * 1e3,
+                           "demoted": cli.LAST_RUN["chunk"]["demoted"]}
+        out.update(scans)
+
+        # the vectorizer: --ddump-vect through the CLI, run_vect here
+        rc = cli.main([f"--src={os.path.join(here, 'examples', 'scrambler.zir')}",
+                       f"--input-file-name="
+                       f"{os.path.join(here, 'examples', 'golden', 'scrambler.infile')}",
+                       f"--output-file-name={os.path.join(tmp, 'v.out')}",
+                       f"--platform={platform}", "--ddump-vect"])
+        check(rc == 0, f"--ddump-vect: the CLI returned {rc}")
+    prog = z.pipe(z.zmap(lambda x: x * 3 - 1),
+                  z.map_accum(lambda s, x: (s + x, s ^ x), np.int32(0)),
+                  z.zmap(lambda x: x % 1000))
+    xs = (np.arange(1 << 16, dtype=np.int32) * 7919) % 65521
+    plan = V.vectorize(prog, device=dev)
+    got = run_vect(prog, xs, device=dev, plan=plan)
+    want = run_vect(prog, xs, device="cpu")
+    check(np.array_equal(np.asarray(got), np.asarray(want)),
+          "run_vect: the card's output differs from the CPU's")
+    out["vect"] = {"widths": [sg.width for sg in plan.segments],
+                   "constants": plan.constants, "items": int(xs.shape[0]),
+                   "equal_to_cpu": True}
+    return out, launches, checks
+
+
 def compiler_phase(rng, dev, card):
-    """The compiler on the card: the 28 golden cases through the port's
-    CLI on their backends and flags, each output equal to its ground
-    file; a --state-out/--state-in round trip (state_roundtrip); then
-    examples/wifi_rx.zir at full width, one 1000-byte capture per rate
-    of COMPILER_RATES, default decode and --viterbi-window, the payload
-    right; the windowed runs' ACS and traceback launches held bitwise
-    to their plain versions at their own inputs. Launch counts zeroed
-    just before each run and read just after. Returns (the phase's
-    JSON object, the full-width runs' launches, the kernel checks)."""
+    """The compiler on the card: the plan of examples/wifi_rx.zir names
+    the reference's chunk machines (compiler_plan); the 28 golden cases
+    through the port's CLI on their backends and flags, each output
+    equal to its ground file; a --state-out/--state-in round trip
+    (state_roundtrip); then examples/wifi_rx.zir at full width, one
+    1000-byte capture per rate of COMPILER_RATES, default decode and
+    --viterbi-window, the payload right, every chunk-machine step of
+    the first run held bitwise to its eager step at the same inputs
+    (GraphHeldToEager); the windowed runs' ACS and traceback launches
+    held bitwise to their plain versions at their own inputs. Launch
+    counts zeroed just before each run and read just after. Returns
+    (the phase's JSON object, the full-width runs' launches, the kernel
+    checks)."""
+    import contextlib
     import tempfile
 
     import torch
@@ -2484,7 +2816,8 @@ def compiler_phase(rng, dev, card):
 
     here = os.path.dirname(os.path.abspath(__file__))
     platform = torch.device(dev).type
-    out = {"phase": "compiler", "card": card, "golden": {}, "full": {}}
+    out = {"phase": "compiler", "card": card, "golden": {}, "full": {},
+           "plan": compiler_plan(dev), "before_full_s": COMPILER_BEFORE_S}
     launches, checks = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -2505,11 +2838,20 @@ def compiler_phase(rng, dev, card):
                 name = f"wifi_rx_{rate}_{how}"
                 tap = KernelTap([(vc, "acs"), (vc, "traceback")])
                 torch.cuda.synchronize()
-                with tap:
+                # the first frame: every chunk-machine step also runs
+                # eagerly at the same inputs, held bitwise to the graph
+                held = GraphHeldToEager() if (k, how) == (0, "default") \
+                    else contextlib.nullcontext()
+                with tap, held:
                     got, _ty, run = run_zir(
                         os.path.join(here, "examples", "wifi_rx.zir"), cap,
                         "bin", "hybrid", os.path.join(tmp, f"{name}.out"),
                         platform, extra)
+                if (k, how) == (0, "default"):
+                    out["graph_vs_eager"] = held.report()
+                    check(held.steps >= 3 and not held.mismatch,
+                          f"compiler {name}: graph steps against eager "
+                          f"{held.report()}")
                 launches[name] = dict(run["launches"])
                 check(got.shape[0] >= want.shape[0]
                       and got.shape[0] - want.shape[0] < 8
@@ -2768,38 +3110,45 @@ def main(argv=None) -> int:
     del results
 
     # ---- 5. the streaming receiver
+    t_ph = time.perf_counter()
     stream_line, stream_launches, stream_checks = stream_phase(
         rng, dev, caps, sent, rates, card)
-    emit(stream_line)
+    t_ph = emit_timed(stream_line, t_ph)
 
     # ---- 6. the S-stream fleet, 7. the serving runtime
     fleet_line, fleet_launches, fleet_checks = fleet_phase(rng, dev, card)
-    emit(fleet_line)
+    t_ph = emit_timed(fleet_line, t_ph)
     serve_line, fleet_launches["serve"] = serve_phase(rng, dev, card)
-    emit(serve_line)
+    t_ph = emit_timed(serve_line, t_ph)
 
     # ---- 8. the loopback link, 9. the BER sweep, 10. the load generator
     link_line, link_launches, link_checks = link_phase(rng, dev, card)
-    emit(link_line)
+    t_ph = emit_timed(link_line, t_ph)
     sweep_line, sweep_launches = sweep_phase(rng, dev, card)
-    emit(sweep_line)
+    t_ph = emit_timed(sweep_line, t_ph)
     synth_line, synth_launches = synth_phase(rng, dev, card)
-    emit(synth_line)
+    t_ph = emit_timed(synth_line, t_ph)
 
     # ---- 11. the compiler
     compiler_line, compiler_launches, compiler_checks = compiler_phase(
         rng, dev, card)
-    emit(compiler_line)
+    t_ph = emit_timed(compiler_line, t_ph)
 
-    # ---- 12. the fixed-point path
+    # ---- 12. frame batching, the packet search, the vectorizer
+    batch_line, batch_launches, batch_checks = batch_phase(rng, dev, card)
+    t_ph = emit_timed(batch_line, t_ph)
+    compiler_launches.update(batch_launches)
+    compiler_checks.update(batch_checks)
+
+    # ---- 13. the fixed-point path
     fxp_line, fxp_launches, fxp_checks = fxp_phase(rng, dev, card)
-    emit(fxp_line)
+    t_ph = emit_timed(fxp_line, t_ph)
 
-    # ---- 13. the CLI surface, tracing, the observatory, the autotuner
+    # ---- 14. the CLI surface, tracing, the observatory, the autotuner
     observe_line, observe_launches = observe_phase(rng, dev, card)
-    emit(observe_line)
+    t_ph = emit_timed(observe_line, t_ph)
 
-    # ---- 14. timing
+    # ---- 15. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},

@@ -64,10 +64,27 @@ def _argv(src, inf, outf, *extra):
             f"--output-file-name={outf}", *extra]
 
 
-@pytest.mark.parametrize("flag", sorted(cli.REFUSED_FLAGS))
+#: the reference's flags this driver refused before item 6b: those of
+#: item 5 still are; the rest parse (their runs are tested with their
+#: modules: test_torch_framebatch_many, test_torch_search,
+#: test_torch_vectorize)
+ONCE_REFUSED = {"--batch-input-files": ("batch_input_files", "value"),
+                "--batch-output-files": ("batch_output_files", "value"),
+                "--ddump-vect": ("ddump_vect", "store_true"),
+                "--pp": ("pp", "value"), "--pp-costs": ("pp_costs", "value"),
+                "--scan": ("scan", "store_true"), "--sp": ("sp", "value")}
+
+
+@pytest.mark.parametrize("flag", sorted(ONCE_REFUSED))
 def test_refused_flag_names_its_roadmap_item(flag, capsys):
-    kind, item = cli.REFUSED_FLAGS[flag][1], cli.REFUSED_FLAGS[flag][2]
+    dest, kind = ONCE_REFUSED[flag]
     argv = ["--src=x.zir", flag] + ([] if kind == "store_true" else ["v"])
+    if flag not in cli.REFUSED_FLAGS:
+        args = cli.build_parser().parse_args(argv)
+        assert getattr(args, dest) == (True if kind == "store_true"
+                                       else "v")
+        return
+    item = cli.REFUSED_FLAGS[flag][2]
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     assert e.value.code == 2
@@ -76,19 +93,20 @@ def test_refused_flag_names_its_roadmap_item(flag, capsys):
 
 
 def test_scan_and_batch_files_name_item_6b(capsys):
-    """They run framebatch.run_many and the chunked state machines (and
-    --ddump-vect the vectorizer), which item 6b ports; the mesh flags
-    name item 5 and lint 4d."""
-    for flag in ("--scan", "--batch-input-files", "--batch-output-files",
-                 "--ddump-vect"):
-        assert cli.REFUSED_FLAGS[flag][2] == "6b"
+    """Item 6b ported framebatch.run_many, the chunked state machines,
+    the packet search and the vectorizer, so --scan, --batch-* and
+    --ddump-vect run; the mesh flags still name item 5, and no
+    subcommand is refused (lint is item 4d, ported)."""
+    assert set(cli.REFUSED_FLAGS) == {"--sp", "--pp", "--pp-costs"}
     for flag in ("--sp", "--pp", "--pp-costs"):
         assert cli.REFUSED_FLAGS[flag][2] == "5"
-    assert cli.REFUSED_SUBCOMMANDS == {"lint": "4d"}
+    assert cli.REFUSED_SUBCOMMANDS == {}
+    with pytest.raises(SystemExit, match="drop --src/--prog"):
+        cli.main(["--src=x.zir", "--scan", "--platform=cpu"])
     with pytest.raises(SystemExit) as e:
-        cli.main(["--src=x.zir", "--scan"])
+        cli.main(["--scan", "--sp=2"])
     assert e.value.code == 2
-    assert "--scan is not ported yet (ROADMAP Queue 1 item 6b)" in \
+    assert "--sp is not ported yet (ROADMAP Queue 1 item 5)" in \
         capsys.readouterr().err
 
 
@@ -144,12 +162,15 @@ def test_ported_subcommand_runs(sub, capsys):
     assert f"ziria_tpu_torch {sub}" in out and "--platform" in out
 
 
-@pytest.mark.parametrize("sub", sorted(cli.REFUSED_SUBCOMMANDS))
+@pytest.mark.parametrize("sub", ["lint"])
 def test_refused_subcommand_names_its_roadmap_item(sub, capsys):
-    assert cli.main([sub, "--help"]) == 2
-    item = cli.REFUSED_SUBCOMMANDS[sub]
-    assert f"`{sub}` subcommand is not ported yet (ROADMAP Queue 1 item " \
-           f"{item})" in capsys.readouterr().err
+    """The subcommands this driver refused (lint, item 4d) now run,
+    dispatched before the flags are parsed, to their own parser."""
+    assert sub not in cli.REFUSED_SUBCOMMANDS
+    with pytest.raises(SystemExit) as e:
+        cli.main([sub, "--help"])
+    assert e.value.code == 0
+    assert f"ziria_tpu_torch {sub}" in capsys.readouterr().out
 
 
 def test_without_a_card_the_driver_raises(tmp_path, monkeypatch):

@@ -198,3 +198,56 @@ def test_out_of_range_indexes_follow_lax_on_jit():
     with pytest.raises(ZiriaRuntimeError):
         run(prog.comp, list(xs))
     _same(run_jit(prog.comp, xs, device="cpu"), jax_run_jit(ref.comp, xs))
+
+
+CORRELATE = """
+let comp main = read[double] >>> repeat {
+  (x : arr[72] double) <- takes 72;
+  var h : arr[32] double;
+  var out : arr[40] double;
+  do {
+    for i in [0, 32] { h[i] := x[i + 40] * 0.5 };
+    for k in [0, 40] {
+      var cr : double := 0.0;
+      var ci : double := 0.0;
+      for i in [0, 32] {
+        cr := cr + x[k + i] * h[i] * 0.001;
+        ci := ci - x[k + i] * h[31 - i] * 0.003 + cr * 0.5
+      };
+      out[k] := cr * cr + ci
+    }
+  };
+  emits out
+} >>> write[double]
+"""
+
+
+def test_nested_reduction_loop_is_one_lane_vector_pass(monkeypatch):
+    """A loop whose body holds an inner reduction over its own locals (a
+    correlation: the flagship's LTS timing) runs in a device block as
+    ONE lane-vector pass around a plain inner loop, each lane adding in
+    the sequential order: bitwise the plain device loop, in 32
+    device-loop iterations instead of 40 x 32; within 1e-5 of the
+    interpreters (numpy's float32 arithmetic on the host rounds a few
+    sums differently from torch's, before and after this rewrite),
+    which agree bitwise with each other."""
+    from ziria_tpu_torch.backend import hybrid
+
+    xs = np.random.default_rng(11).normal(scale=1000.0, size=144) \
+        .astype(np.float32)
+    prog = compile_source(CORRELATE)
+    want = np.asarray(run(prog.comp, list(xs)).out_array())
+    ref = np.asarray(jax_run(jax_compile(CORRELATE).comp,
+                             list(xs)).out_array())
+    np.testing.assert_array_equal(want, ref)
+    hyb = hybrid.hybridize(prog.comp, device="cpu")
+    E.reset_counts()
+    got = np.asarray(run(hyb, list(xs)).out_array())
+    assert hybrid.BLOCKS["device"] >= 2
+    assert E.COUNTS["device_loop_iters"] == 2 * 32
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    monkeypatch.setattr(E, "NESTED_LANE_PASS", False)
+    E.reset_counts()
+    plain = np.asarray(run(hyb, list(xs)).out_array())
+    assert E.COUNTS["device_loop_iters"] > 2 * 40 * 32
+    np.testing.assert_array_equal(plain, got)

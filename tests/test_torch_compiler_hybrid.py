@@ -71,17 +71,19 @@ def test_wifi_rx_plan_is_the_references():
 
 
 def test_loops_stay_on_the_host_interpreter():
-    """With chunk_loops (the CLI's default) every stream-control loop is
-    dumped as left on the host; the do-block decisions are unchanged."""
-    lines = _plan(hybrid.hybridize, fold(compile_file(WIFI_RX).comp),
-                  device="cpu")
-    loops = [ln for ln in lines if ln.lstrip().startswith("loop ")]
-    assert loops and all(ln.endswith("-> host (chunked.py not ported)")
-                         for ln in loops)
-    blocks = [ln for ln in lines if not ln.lstrip().startswith("loop ")]
-    assert blocks == _plan(hybrid.hybridize,
-                           fold(compile_file(WIFI_RX).comp),
-                           chunk_loops=False, device="cpu")
+    """With chunk_loops (the CLI's default) the flagship's whole plan is
+    the reference's, line for line: its stream-control loops, 1 While
+    and 32 For, become chunk machines (backend/chunked.py) named in the
+    reference's words and order, and every do-block decision outside
+    them is the reference's. (The name dates from the slice in which
+    every loop stayed on the host interpreter.)"""
+    port = _plan(hybrid.hybridize, fold(compile_file(WIFI_RX).comp),
+                 device="cpu")
+    ref = _plan(jax_hybridize, jax_fold(jax_compile_file(WIFI_RX).comp))
+    assert port == ref
+    loops = [ln.strip() for ln in port
+             if "chunked" in ln or ln.lstrip().startswith("loop ")]
+    assert loops == ["chunked While"] + ["chunked For"] * 32
 
 
 def test_device_block_failure_raises(monkeypatch):

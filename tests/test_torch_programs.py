@@ -34,11 +34,14 @@ def test_driver_covers_every_discovered_site():
         programs.run_driver("cpu")
     cov = programs.coverage(d.counts, sites)
     assert cov["undiscovered"] == []
-    # the compiler's sites run under the CLI (test_torch_compiler_*)
-    assert cov["uncovered"] == ["execute.scan_bulk", "execute.scan_rem",
+    # the compiler's sites run under the CLI (test_torch_compiler_*,
+    # test_torch_chunked, test_torch_framebatch_many)
+    assert cov["uncovered"] == ["chunked.replay", "chunked.step",
+                                "execute.scan_bulk",
+                                "execute.scan_rem",
                                 "externals.viterbi_scan",
                                 "externals.viterbi_windowed",
-                                "hybrid.device_block"]
+                                "framebatch.step", "hybrid.device_block"]
 
 
 def test_roofline_and_peaks_keep_the_reference_arithmetic(monkeypatch):
@@ -166,3 +169,14 @@ def test_programs_subcommand_prints_its_report(capsys, monkeypatch):
     assert out.startswith("== driver: wall") and "dispatch sites covered" \
         in out and "rx.acquire_many" in out
     assert "cost rx.acquire_many x1: " in out and "achieved_gbps" in out
+
+
+def test_entry_points_default_to_the_card():
+    """Observatory.profile, run_driver and collect_programs run on the
+    card unless the caller asks for the CPU, as every port entry point
+    does (the tests above pass "cpu")."""
+    import inspect
+    for fn in (programs.Observatory.profile, programs.run_driver,
+               programs.collect_programs):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__qualname__

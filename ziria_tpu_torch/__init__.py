@@ -53,4 +53,18 @@ from ziria_tpu_torch.core.types import (  # noqa: F401,E402
     typecheck,
 )
 from ziria_tpu_torch.core.opt import fold, fold_with_stats  # noqa: F401,E402
-from ziria_tpu_torch.core.autolut import autolut  # noqa: F401,E402
+
+#: exports whose modules import torch, loaded on first use so that
+#: `python -m ziria_tpu_torch lint` runs without importing torch
+_LAZY = {"autolut": "ziria_tpu_torch.core.autolut",
+         "VectPlan": "ziria_tpu_torch.core.vectorize",
+         "mitigator": "ziria_tpu_torch.core.vectorize",
+         "vectorize": "ziria_tpu_torch.core.vectorize",
+         "widen": "ziria_tpu_torch.core.vectorize"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

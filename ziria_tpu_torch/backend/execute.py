@@ -163,9 +163,32 @@ def run_jit_carry(comp: ir.Comp, inputs, carry=None,
 
 
 def run_vect(comp: ir.Comp, inputs, plan=None, optimize: bool = False,
-             item_bytes: int = 4):
-    """The vectorizer's plan (core/vectorize.py) is not ported: ROADMAP
-    Queue 1 item 6b."""
-    raise NotImplementedError(
-        "run_vect needs core/vectorize.py, which is not ported yet "
-        "(ROADMAP Queue 1 item 6b); use run_jit or the hybrid backend")
+             item_bytes: int = 4, device="cuda") -> np.ndarray:
+    """Run a pipeline under the vectorizer's plan (core/vectorize.py)
+    on `device`.
+
+    Static segments run fused on the jit backend at their searched
+    widths; dynamic segments (no static cardinality) on the hybrid
+    backend (interpreter-driven control, heavy do-blocks and chunk
+    machines on the device); the host boundary between segments is the
+    mitigator. A fully static pipeline is ``run_jit`` at the planned
+    width, a fully dynamic one the hybrid executor."""
+    from ziria_tpu_torch.core.vectorize import vectorize
+
+    if optimize:
+        from ziria_tpu_torch.core.opt import fold
+        comp = fold(comp)
+    if plan is None:
+        plan = vectorize(comp, item_bytes=item_bytes, device=device)
+    stream = np.asarray(inputs)
+    for seg in plan.segments:
+        if seg.dynamic:
+            from ziria_tpu_torch.backend.hybrid import run_hybrid
+            stream = _to_host(run_hybrid(seg.comp, stream,
+                                         device=device).out_array())
+        else:
+            stream = run_jit(seg.comp, stream, width=seg.width,
+                             device=device)
+        if stream.shape[0] == 0:
+            return stream
+    return stream

@@ -4,17 +4,35 @@ ziria_tpu/backend/framebatch.py: ``receive_many`` :210,
 single-stream receiver :405-1230 (``StreamReceiver``,
 ``receive_stream``), the S-stream fleet :1232-2041
 (``MultiStreamReceiver``, ``receive_streams``) and the link's thin
-re-exports ``transmit_many`` :2044 and ``loopback_many`` :2056)."""
+re-exports ``transmit_many`` :2044 and ``loopback_many`` :2056), and
+the frame batcher of compiled programs, ``StepBatcher`` :70 and
+``run_many`` :2065).
+
+Frame batching of a compiled ``.zir`` program: each frame runs the
+interpreter/hybrid executor in its own thread (host control stays
+per-frame Python: divergent rates, ragged lengths and interpreter EOF
+tails just work); when a frame's chunk machine (backend/chunked.py)
+needs a step, it parks its request in the shared :class:`StepBatcher`;
+when every unfinished frame is parked, the parking thread fires:
+requests are grouped by (machine, key, operand shapes, the host values
+the step bakes in), each group's lanes are padded to a power of two
+(lane 0 repeated) and run as ONE lane-batched step, and every frame
+resumes with its lane of the result. Only the firing thread launches
+while the others are parked, which is also what lets a machine
+capture its CUDA graph there."""
 
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Any, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ziria_tpu_torch.backend import chunked as C
+from ziria_tpu_torch.core import ir
 from ziria_tpu_torch.ops import cplx, viterbi
 from ziria_tpu_torch.phy.wifi import rx as _rx
 from ziria_tpu_torch.phy.wifi.params import N_SERVICE_BITS, RATE_INDEX, \
@@ -1567,3 +1585,173 @@ def loopback_many(psdus, rates_mbps, **kw) -> List[Any]:
     ``ZIRIA_FUSED_LINK=0``."""
     from ziria_tpu_torch.phy import link
     return link.loopback_many(psdus, rates_mbps, **kw)
+
+
+# --------------------------------------------------------------------------
+# Frame batching of chunk-machine steps (reference :70, :2065)
+# --------------------------------------------------------------------------
+
+
+def _shape_sig(args) -> tuple:
+    """Operand shapes and dtypes of one step request."""
+    chunk, _avail, _n, _it, vals = args
+
+    def sig(v):
+        if isinstance(v, torch.Tensor):
+            return ("t", tuple(v.shape), str(v.dtype))
+        if isinstance(v, dict):
+            return tuple(sorted((k, sig(x)) for k, x in v.items()))
+        a = np.asarray(v)
+        return ("n", a.shape, a.dtype.str)
+
+    return (None if chunk is None else (chunk.shape, chunk.dtype.str),
+            tuple(sig(v) for v in vals))
+
+
+class _Req:
+    __slots__ = ("node", "key", "args", "done", "result", "exc")
+
+    def __init__(self, node, key, args):
+        self.node = node
+        self.key = key
+        self.args = args
+        self.done = False
+        self.result = None
+        self.exc: Optional[BaseException] = None
+
+
+class StepBatcher:
+    """Collects concurrent chunk-step requests from frame threads and
+    services them in lane-batched groups. `device_calls` counts the
+    steps fired (one per group), `group_sizes` their lane counts."""
+
+    def __init__(self, n_frames: int):
+        self._cv = threading.Condition()
+        self._active = n_frames
+        self._parked: List[_Req] = []
+        # one frame thread runs at a time, from its start (or a wake-up)
+        # to its next park: the host work is Python under one GIL
+        # anyway, and threads contending for it made every torch call
+        # wait out another thread's switch interval
+        self._baton = threading.Lock()
+        self.device_calls = 0
+        self.group_sizes: List[int] = []
+
+    def frame_started(self) -> None:
+        self._baton.acquire()
+
+    def frame_finished(self) -> None:
+        self._baton.release()
+        with self._cv:
+            self._active -= 1
+            if self._parked and len(self._parked) >= self._active:
+                self._fire_locked()
+
+    def call(self, node, key, args):
+        """The park point (chunked._step_call under run_many)."""
+        req = _Req(node, key, args)
+        self._baton.release()
+        try:
+            with self._cv:
+                self._parked.append(req)
+                if len(self._parked) >= self._active:
+                    self._fire_locked()
+                while not req.done:
+                    self._cv.wait()
+        finally:
+            self._baton.acquire()
+        if req.exc is not None:
+            raise req.exc
+        return req.result
+
+    def _fire_locked(self) -> None:
+        batch, self._parked = self._parked, []
+        try:
+            self._service(batch)
+        finally:
+            # every parked thread must wake, whatever happened above
+            for r in batch:
+                if not r.done:
+                    if r.exc is None and r.result is None:
+                        r.exc = RuntimeError(
+                            "step batch aborted before this lane ran")
+                    r.done = True
+            self._cv.notify_all()
+
+    def _fire(self, reqs: List[_Req]) -> None:
+        mach = reqs[0].node._machines[reqs[0].key]
+        with dispatch.timed("framebatch.step"):
+            got = mach.run([r.args for r in reqs])
+        for r, g in zip(reqs, got):
+            r.result = g
+        C.STATS["device_calls"] += 1
+        self.device_calls += 1
+        self.group_sizes.append(len(reqs))
+
+    def _service(self, batch: List[_Req]) -> None:
+        groups: dict = {}
+        for r in batch:
+            try:
+                mach = r.node._machines[r.key]
+                sig = (id(r.node), r.key, _shape_sig(r.args),
+                       mach.static_key(r.args[4]))
+            except C._Unstageable as e:
+                r.exc = e
+                continue
+            groups.setdefault(sig, []).append(r)
+        for reqs in groups.values():
+            try:
+                self._fire(reqs)
+            except Exception as e:
+                for r in reqs:
+                    r.exc = e
+            for r in reqs:
+                r.done = True
+
+
+def run_many(comp: ir.Comp, frames: Sequence[Sequence[Any]],
+             max_out: Optional[int] = None,
+             batcher: Optional[StepBatcher] = None) -> List[Any]:
+    """Run `comp` once per entry of `frames` (each an independent input
+    stream), batching chunk-machine steps across frames. Returns the
+    per-frame :class:`interp.Result`s, equal to running each frame
+    alone. Pass a hybridized comp (`hybrid.hybridize`); a plain comp
+    works too, it just has no steps to batch. One frame runs the
+    single-frame path (no threads, no batcher)."""
+    from ziria_tpu_torch.interp.interp import run
+
+    n = len(frames)
+    if n == 0:
+        return []
+    if n == 1:
+        return [run(comp, list(frames[0]), max_out=max_out)]
+
+    b = batcher if batcher is not None else StepBatcher(n)
+    with b._cv:
+        b._active = n        # reconcile a caller-supplied/reused batcher
+        b._parked.clear()
+    results: List[Any] = [None] * n
+    errors: List[Optional[BaseException]] = [None] * n
+
+    def worker(i: int, xs) -> None:
+        C._TLS.batcher = b
+        b.frame_started()
+        try:
+            results[i] = run(comp, list(xs), max_out=max_out)
+        except BaseException as e:
+            errors[i] = e
+        finally:
+            C._TLS.batcher = None
+            b.frame_finished()
+
+    threads = [threading.Thread(target=worker, args=(i, xs),
+                                name=f"ziria-frame-{i}", daemon=True)
+               for i, xs in enumerate(frames)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results

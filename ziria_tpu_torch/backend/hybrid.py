@@ -33,10 +33,9 @@ Blocks containing `print`/`println`/`error` are never wrapped (side
 effects must fire per execution, and `error` must raise
 data-dependently).
 
-The stream-control loops that the reference's ``chunked.py`` turns
-into device state machines are not ported (ROADMAP Queue 1 item 6b):
-they run on the host interpreter, which is the reference's own
-fallback for a loop it does not wrap and gives the same results.
+Stream-control loops (a For or While whose body takes or emits)
+become chunked state machines on the device first
+(backend/chunked.py, ``chunk_loops=True``).
 """
 
 from __future__ import annotations
@@ -295,16 +294,16 @@ def hybridize(comp: ir.Comp, min_weight: int = MIN_JIT_WEIGHT,
     """Rewrite heavy do-blocks into `_DeviceDo` wrappers on `device`;
     everything else is untouched. Running the result on the interpreter
     gives hybrid execution. `dump`, if given, receives one line per
-    decision (the --ddump-hybrid flag). `chunk_loops` asks for the
-    reference's chunked stream-control loops (backend/chunked.py),
-    which are not ported: every loop stays on the host interpreter and
-    the dump says so."""
+    decision (the --ddump-hybrid flag). `chunk_loops` turns the
+    stream-control loops into chunked state machines on `device`
+    (backend/chunked.py) first; their bodies keep their own do-blocks."""
     import dataclasses
 
+    if chunk_loops:
+        from ziria_tpu_torch.backend.chunked import wrap_loops
+        comp = wrap_loops(comp, dump=dump, device=device)
+
     def walk(c: ir.Comp) -> ir.Comp:
-        if chunk_loops and dump is not None \
-                and isinstance(c, (ir.While, ir.For, ir.Repeat)):
-            dump(f"  loop {c.label()} -> host (chunked.py not ported)")
         if isinstance(c, ir.Return) and callable(c.expr):
             stmts = getattr(c.expr, "z_stmts", None)
             if stmts is None:

@@ -36,12 +36,18 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+def env_cuda_home() -> str:
+    """The CUDA_HOME environment variable ("" when unset)."""
+    return os.environ.get("CUDA_HOME", "")
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler: $CUDA_HOME/bin, then PATH, then
     /usr/local/cuda/bin."""
     cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    home = env_cuda_home()
+    if home:
+        cands.append(os.path.join(home, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found:
         cands.append(found)

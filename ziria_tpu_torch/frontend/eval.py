@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -93,14 +94,44 @@ _CPLX = ("complex", "complex16", "complex32")
 # Device mode, counters and the torch value helpers
 # --------------------------------------------------------------------------
 
-#: the evaluator's device state: kind None (host), "block" (an eager
-#: device block) or "vmap" (a jit firing function under torch.func.vmap)
-_MODE = {"kind": None, "device": None}
+class _ThreadMode(threading.local):
+    """The evaluator's device state, one per thread (the frame threads
+    of backend/framebatch.run_many run device blocks side by side):
+    kind None (host), "block" (an eager device block) or "vmap" (a jit
+    firing function or a chunk-machine iteration under
+    torch.func.vmap); "lanes" counts the lane-vector loop passes
+    running (a loop nested in one runs as a plain loop over the
+    lanes)."""
+
+    def __init__(self):
+        self.d = {"kind": None, "device": None, "lanes": 0}
+
+    def __getitem__(self, k):
+        return self.d[k]
+
+    def __setitem__(self, k, v):
+        self.d[k] = v
+
+
+_MODE = _ThreadMode()
+
+#: a list while a chunk machine captures a CUDA graph
+#: (backend/chunked.py), else None: host values then reach the card by
+#: a fill kernel (scalars) or a copy from pinned memory (arrays), which
+#: a capture records, and the pinned buffers are kept here for the
+#: graph's lifetime. "guard" is set for the whole of a chunk-machine
+#: step, on any device: a host read of a device value then raises
+_CAPTURE = {"keep": None, "guard": False}
 
 #: per-run counters: iterations of plain device loops (a loop that was
 #: neither lane-vectorized nor GF(2)-compressed: one launch per op per
 #: iteration) and host syncs on device values (bool()/item())
 COUNTS = {"device_loop_iters": 0, "syncs": 0}
+
+#: a statement loop whose iterations each run an inner reduction over
+#: their own locals runs as one lane-vector pass (_vector_plan); False
+#: runs it as the plain device loop (scripts/lane_pass.py times both)
+NESTED_LANE_PASS = True
 
 
 def reset_counts() -> None:
@@ -112,12 +143,12 @@ def reset_counts() -> None:
 def device_mode(kind: str, device):
     """Evaluate the body as a device block of `kind` ("block" or
     "vmap") on `device`; nests, restoring the outer mode after."""
-    prev = dict(_MODE)
+    prev = dict(_MODE.d)
     _MODE["kind"], _MODE["device"] = kind, torch.device(device)
     try:
         yield
     finally:
-        _MODE.update(prev)
+        _MODE.d = prev
 
 
 _NP_TO_T = {np.dtype(np.bool_): torch.bool, np.dtype(np.uint8): torch.uint8,
@@ -186,9 +217,13 @@ def _t(v, device=None, dtype=None) -> torch.Tensor:
                 and v.dim() > 0:
             v = v.to(device)
         return v if dtype is None else v.to(dtype)
-    dev = device if device is not None else _dev()
+    dev = torch.device(device if device is not None else _dev())
+    capturing = _CAPTURE["keep"] is not None and dev.type == "cuda"
     if isinstance(v, (bool, int, float, complex)) and not hasattr(
             v, "dtype"):
+        if capturing:
+            return torch.full((), v, dtype=dtype or _py_dtype(v),
+                              device=dev)
         return torch.tensor(v, dtype=dtype or _py_dtype(v), device=dev)
     a = np.asarray(v)
     if a.dtype == object:
@@ -196,8 +231,13 @@ def _t(v, device=None, dtype=None) -> torch.Tensor:
                                 f"{type(v).__name__} on the device")
     tdt = _CANON.get(a.dtype) or _NP_TO_T[a.dtype]
     # asarray(order="C"), not ascontiguousarray: that one makes 0-d 1-d
-    out = torch.from_numpy(np.asarray(a, order="C")).to(device=dev,
-                                                        dtype=tdt)
+    host = torch.from_numpy(np.asarray(a, order="C"))
+    if capturing:
+        host = host.pin_memory()
+        _CAPTURE["keep"].append(host)
+        out = host.to(device=dev, non_blocking=True).to(tdt)
+    else:
+        out = host.to(device=dev, dtype=tdt)
     return out if dtype is None else out.to(dtype)
 
 
@@ -243,9 +283,20 @@ def _sync_bool(v, loc=(0, 0)) -> bool:
             raise DeviceControlError(
                 f"{loc[0]}:{loc[1]}: control flow depends on a value "
                 f"that differs per firing (under vmap)")
+        _no_host_read(loc)
         COUNTS["syncs"] += 1
         return bool(v)
     return bool(v)
+
+
+def _no_host_read(loc=(0, 0)) -> None:
+    """A host read of a device value inside a chunk-machine step (a
+    sync a CUDA graph cannot record) is a control-flow shape the step
+    does not support: raise as data-dependent control does."""
+    if _CAPTURE["guard"]:
+        raise DeviceControlError(
+            f"{loc[0]}:{loc[1]}: a chunk-machine step reads a device "
+            f"value on the host")
 
 
 def _size(v) -> int:
@@ -255,6 +306,7 @@ def _size(v) -> int:
 def _to_host(v):
     """A 0-d tensor's value as numpy (a sync), else `v`."""
     if isinstance(v, torch.Tensor):
+        _no_host_read()
         COUNTS["syncs"] += 1
         return v.detach().cpu().numpy()
     return v
@@ -882,9 +934,9 @@ def _t_operands(a, b):
     if tb is not None and tb.dtype in _NARROW:
         tb = tb.to(torch.int32)
     if ta is None:
-        ta = torch.tensor(a, dtype=_py_dtype(a, tb.dtype), device=dev)
+        ta = _t(a, dev, _py_dtype(a, tb.dtype))
     if tb is None:
-        tb = torch.tensor(b, dtype=_py_dtype(b, ta.dtype), device=dev)
+        tb = _t(b, dev, _py_dtype(b, ta.dtype))
     return ta, tb
 
 
@@ -1545,8 +1597,12 @@ def _vector_plan(st: A.SFor, scope: Scope, ctx: Ctx):
     index expressions, e.g. the two arms of an if writing the same
     element) sharing one stride with pairwise distinct static offsets
     mod stride (so scatter lanes never collide and site order is
-    immaterial across lanes). No nested loops, no local arrays (their
-    per-iteration privacy has no lane representation), no returns.
+    immaterial across lanes). A nested loop is allowed only outside an
+    if, with bounds free of the loop var and the body's locals, and a
+    body that writes only scalar locals (its own or this body's); it
+    runs as a plain loop over lane vectors. No other nested loops, no
+    local arrays (their per-iteration privacy has no lane
+    representation), no returns.
 
     Outer-scalar updates classify two ways:
 
@@ -1621,6 +1677,44 @@ def _vector_plan(st: A.SFor, scope: Scope, ctx: Ctx):
             elif isinstance(x, A.EVar) and id(x) not in base_ids:
                 bare_reads.add(x.name)
 
+    def inner_ok(s: A.SFor, lc: set) -> bool:
+        # a nested loop whose iterations only write this body's own
+        # scalar locals (a correlation's inner sum): it runs as a plain
+        # loop over lane vectors, each lane adding in the loop's order,
+        # so every lane's value is the sequential loop's bit for bit.
+        # Its bounds must be the same on every lane
+        if var in _free_names(s.start) | _free_names(s.count) \
+                or (_free_names(s.start) | _free_names(s.count)) & lc:
+            return False
+        try:
+            ctx.static_eval(s.start, scope)
+            ctx.static_eval(s.count, scope)
+        except NotStatic:
+            return False
+        inner = {s.var}
+        decl_names.add(s.var)
+        for t in s.body:
+            if isinstance(t, (A.SVar, A.SLet)):
+                if isinstance(t.ty, A.TArr) or t.name in (var, s.var):
+                    return False
+                e = t.init if isinstance(t, A.SVar) else t.e
+                if e is not None:
+                    if not expr_ok(e):
+                        return False
+                    note_reads(e)
+                inner.add(t.name)
+                decl_names.add(t.name)
+            elif isinstance(t, A.SAssign) and isinstance(t.lval, A.EVar) \
+                    and (t.lval.name in lc or t.lval.name in inner):
+                if not expr_ok(t.e):
+                    return False
+                note_reads(t.e)
+                deps.setdefault(t.lval.name, set()).update(
+                    _free_names(t.e))
+            else:
+                return False
+        return True
+
     def walk(stmts, in_if: bool, outer_locals: set) -> bool:
         # lexically-scoped local tracking: a declaration is visible
         # from its statement onward WITHIN this block (and nested
@@ -1628,6 +1722,10 @@ def _vector_plan(st: A.SFor, scope: Scope, ctx: Ctx):
         # a later outer-scalar write look local (code review r3)
         lc = set(outer_locals)
         for s in stmts:
+            if isinstance(s, A.SFor) and not in_if and NESTED_LANE_PASS:
+                if not inner_ok(s, lc):
+                    return False
+                continue
             if isinstance(s, (A.SWhile, A.SFor, A.SReturn)):
                 return False
             if isinstance(s, (A.SVar, A.SLet)):
@@ -1826,6 +1924,16 @@ def _vector_plan(st: A.SFor, scope: Scope, ctx: Ctx):
     return {"inductions": inductions, "gen": gen}
 
 
+def _lane_pass(stmts, scope: Scope, ctx: Ctx):
+    """Run a loop body once over lane vectors (marking the pass so a
+    loop nested in it runs plainly)."""
+    _MODE["lanes"] += 1
+    try:
+        return exec_stmts(stmts, scope, ctx)
+    finally:
+        _MODE["lanes"] -= 1
+
+
 def _vectorized_for(start: int, count: int, st: A.SFor, scope: Scope,
                     ctx: Ctx) -> bool:
     """Execute an eligible statement loop as ONE lane-vector pass:
@@ -1901,7 +2009,7 @@ def _vectorized_for(start: int, count: int, st: A.SFor, scope: Scope,
                 pins[name] = torch.zeros((n,), dtype=t0.dtype,
                                          device=dev) + t0
             vs1, _f = lane_scope(pins)
-            r = exec_stmts(st.body, vs1, ctx)
+            r = _lane_pass(st.body, vs1, ctx)
             if r is not None:
                 raise _VectorBail("return inside vector loop")
             for name in gen:
@@ -1917,7 +2025,7 @@ def _vectorized_for(start: int, count: int, st: A.SFor, scope: Scope,
                 c.value = v
 
         vs, finals = lane_scope(gen_entries)
-        r = exec_stmts(st.body, vs, ctx)
+        r = _lane_pass(st.body, vs, ctx)
         if r is not None:                 # pragma: no cover - walked
             raise _VectorBail("return inside vector loop")
         for name, fin in finals.items():
@@ -1983,7 +2091,10 @@ def _staged_for(start, count, st: A.SFor, scope: Scope,
     # try the lane-vector lowering first: eligible bodies (affine
     # scatters, per-lane selects, induction closed forms) run as ONE
     # vector pass instead of `count` iterations
-    if isinstance(start, int) and isinstance(count, int) \
+    # (a loop nested in a lane-vector pass holds per-lane scalars that
+    # neither rewrite models: it runs as the plain loop below)
+    lanes = _MODE["lanes"] > 0
+    if not lanes and isinstance(start, int) and isinstance(count, int) \
             and _vectorized_for(start, count, st, scope, ctx):
         return None
 
@@ -1991,7 +2102,7 @@ def _staged_for(start, count, st: A.SFor, scope: Scope,
     # family loops (scramble/descramble/CRC) collapse to K-iteration
     # bit-matrix blocks; `try_gf2=False` marks its own remainder-tail
     # re-entry
-    if try_gf2:
+    if try_gf2 and not lanes:
         from .gf2 import gf2_for
         if gf2_for(start, count, st, scope, ctx):
             return None

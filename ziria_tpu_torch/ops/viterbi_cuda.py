@@ -250,15 +250,52 @@ def acs_plain(llr: torch.Tensor, renorm: int = RENORM,
         m = torch.full((B, N_STATES), NEG, dtype=torch.float32, device=dev)
     m[:, 0] = 0
     decs = torch.empty((B, Tp, N_STATES), dtype=torch.bool, device=dev)
-    for t in range(0, Tp, k):
-        m, decs[:, t:t + k] = step(m, x[:, t:t + k], tab, integer)
-        if (t + k) % renorm == 0:
-            m = m - m.amax(dim=1, keepdim=True)
-            if integer:
-                m = torch.clamp(m, lo, hi)
+
+    def block(m, xw, dw):
+        # `renorm` steps over the window xw into dw, then the renorm
+        for t in range(0, renorm, k):
+            m, dw[:, t:t + k] = step(m, xw[:, t:t + k], tab, integer)
+        m = m - m.amax(dim=1, keepdim=True)
+        return torch.clamp(m, lo, hi) if integer else m
+
+    if dev.type == "cuda" and Tp:
+        m = _replayed(block, m, x, decs, renorm)
+    else:
+        for b0 in range(0, Tp, renorm):
+            m = block(m, x[:, b0:b0 + renorm], decs[:, b0:b0 + renorm])
     weights = 1 << torch.arange(8, dtype=torch.int32, device=dev)
     packed = (decs.view(B, Tp, 8, 8).to(torch.int32) * weights).sum(-1)
     return packed.to(torch.uint8), m
+
+
+def _replayed(block, carry, x, out, size: int, backward: bool = False):
+    """The plain versions' step loop on a CUDA device: ``carry =
+    block(carry, x[:, a:a + size], out[:, a:a + size])`` over the full
+    windows of `size` steps of ``x.shape[1]``, from the first up (or,
+    `backward`, from the last down to ``x.shape[1] % size``), with the
+    block captured once as a CUDA graph over static windows and
+    replayed: the same kernels in the same order as the eager loop,
+    without its per-step launch cost (eagerly, the plain decodes of a
+    main-path batch take tens of seconds). Returns the final carry."""
+    T = x.shape[1]
+    n = T // size
+    starts = [T - (i + 1) * size for i in range(n)] if backward \
+        else [i * size for i in range(n)]
+    xs, ws = x[:, :size].clone(), out[:, :size].clone()
+    cs = carry.clone()
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    with torch.cuda.stream(side):        # warm-up: caches, allocator
+        block(cs, xs, ws)
+    torch.cuda.current_stream(x.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        cs.copy_(block(cs, xs, ws))
+    for a in starts:
+        xs.copy_(x[:, a:a + size])
+        graph.replay()
+        out[:, a:a + size].copy_(ws)
+    return cs
 
 
 def acs(llr: torch.Tensor, metric_dtype: str = "float32", radix: int = 2):
@@ -322,11 +359,21 @@ def traceback_plain(dec: torch.Tensor, metrics: torch.Tensor):
     B, Tp = dec.shape[0], dec.shape[1]
     state = torch.argmax(metrics, dim=1)                 # first max
     bits = torch.empty((B, Tp), dtype=torch.uint8, device=dec.device)
-    for t in reversed(range(Tp)):
-        bits[:, t] = (state >> 5).to(torch.uint8)
-        byte = dec[:, t].gather(1, (state >> 3)[:, None])[:, 0]
-        d = (byte.to(torch.int64) >> (state & 7)) & 1
-        state = ((state & 31) << 1) | d
+
+    def block(state, dw, bw):
+        # the window's steps, last first
+        for t in reversed(range(dw.shape[1])):
+            bw[:, t] = (state >> 5).to(torch.uint8)
+            byte = dw[:, t].gather(1, (state >> 3)[:, None])[:, 0]
+            d = (byte.to(torch.int64) >> (state & 7)) & 1
+            state = ((state & 31) << 1) | d
+        return state
+
+    r = Tp
+    if dec.device.type == "cuda" and Tp >= RENORM:
+        state = _replayed(block, state, dec, bits, RENORM, backward=True)
+        r = Tp % RENORM
+    block(state, dec[:, :r], bits[:, :r])
     return bits
 
 

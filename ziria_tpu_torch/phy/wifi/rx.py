@@ -203,10 +203,12 @@ def decode_data_batch(frames, rate: RateParams, n_sym: int,
     if fused_demap_enabled(fused_demap) \
             and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frames, n_sym, sco_track)
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_fused.viterbi_decode_batch_fused(
             data, gain, rate, n_bits=T, radix=viterbi_radix)
     else:
         dep = _decode_front(frames, rate, n_sym, sco_track)
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_cuda.viterbi_decode_batch_opt(
             dep, n_bits=T, window=viterbi_window,
             metric_dtype=viterbi_metric, radix=viterbi_radix)
@@ -235,6 +237,7 @@ def decode_data_bucketed(frame, rate: RateParams, n_sym_bucket: int,
     if fused_demap_enabled(fused_demap) \
             and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frame[None], n_sym_bucket, sco_track)
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_fused.viterbi_decode_batch_fused(
             data, gain, rate, n_bits=n_sym_bucket * rate.n_dbps,
             nbits_real=[int(n_bits_real)], radix=viterbi_radix)
@@ -262,11 +265,13 @@ def _decode_data_bits_unfused(frame, rate: RateParams, n_sym_bucket: int,
     dep = torch.where((t < n_bits_real)[None, :, None], dep, 0.0)
     n_bits = n_sym_bucket * rate.n_dbps
     if viterbi_window:
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_cuda.viterbi_decode_batch_windowed(
             dep, n_bits=n_bits, window=viterbi_window,
             metric_dtype=viterbi_metric, radix=viterbi_radix)
     elif (viterbi._check_radix(viterbi_radix) != 2
           or (viterbi_metric or "float32") == "int8"):
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_cuda.viterbi_decode_batch(
             dep, n_bits=n_bits, metric_dtype=viterbi_metric,
             radix=viterbi_radix)
@@ -323,11 +328,13 @@ def decode_data_mixed(frames, rate_idx: Sequence[int], n_bits_real,
     if fused_demap_enabled(fused_demap) \
             and _fused_front_applies(viterbi_window, viterbi_metric):
         data, gain = _front_symbols(frames, n_sym_bucket, sco_track)
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_fused.viterbi_decode_mixed_fused(
             data, gain, rate_idx, n_bits_real, radix=viterbi_radix)
     else:
         dep = mixed_front(frames, rate_idx, n_bits_real, n_sym_bucket,
                           sco_track)
+        # ziria: lint-ignore[R3] timed at the batch surfaces' own sites (rx.decode_mixed, rx.decode_batch, rx.decode_bucketed); a site here would add a dispatch to the counts the stream and fleet tests hold equal to the reference's
         bits = viterbi_cuda.viterbi_decode_batch_opt(
             dep, window=viterbi_window, metric_dtype=viterbi_metric,
             radix=viterbi_radix)

@@ -218,6 +218,7 @@ def decode_data_batch_fxp(frames_q, rate: RateParams, n_sym: int,
     with telemetry.span("rx_fxp.front"):
         dep = _front_batch(frames_q, rate, n_sym)
     with telemetry.span("rx_fxp.decode"):
+        # ziria: lint-ignore[R3] timed at the fixed-point batch's caller (rx.decode_batch), as the float decode is
         bits = viterbi_cuda.viterbi_decode_batch_opt(
             dep.to(torch.float32), n_bits=n_sym * rate.n_dbps,
             window=viterbi_window)

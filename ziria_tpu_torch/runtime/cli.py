@@ -39,6 +39,10 @@ ROADMAP item.
 
 from __future__ import annotations
 
+# ziria: lint-ignore-file[R4] this module owns the scoped-env pattern:
+# main() writes each flag's ZIRIA_* variable for one invocation and
+# restores it after
+
 import argparse
 import os
 import sys
@@ -51,8 +55,8 @@ from ziria_tpu_torch.runtime.buffers import ITEM_TYPES, StreamSpec, \
     read_stream, write_stream
 
 #: subcommands of the reference's driver that this one refuses, and
-#: the ROADMAP Queue 1 item that ports what each runs
-REFUSED_SUBCOMMANDS = {"lint": "4d"}
+#: the ROADMAP Queue 1 item that ports what each runs (none left)
+REFUSED_SUBCOMMANDS: Dict[str, str] = {}
 
 #: flags of the reference's driver that this one refuses: flag -> (dest
 #: in the reference's parser, how it takes a value, ROADMAP item)
@@ -60,10 +64,6 @@ REFUSED_FLAGS = {
     "--pp": ("pp", "value", "5"),
     "--pp-costs": ("pp_costs", "value", "5"),
     "--sp": ("sp", "value", "5"),
-    "--ddump-vect": ("ddump_vect", "store_true", "6b"),
-    "--scan": ("scan", "store_true", "6b"),
-    "--batch-input-files": ("batch_input_files", "value", "6b"),
-    "--batch-output-files": ("batch_output_files", "value", "6b"),
 }
 
 
@@ -225,6 +225,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(.npz; jit backend)")
     p.add_argument("--ddump-fold", action="store_true",
                    help="dump the IR after folding")
+    p.add_argument("--ddump-vect", action="store_true",
+                   help="dump the vectorization plan (core/vectorize.py)")
     p.add_argument("--ddump-hybrid", action="store_true",
                    help="dump the hybrid executor's per-do-block "
                         "decisions (weight, device/effects/below-"
@@ -235,6 +237,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "the host, device-loop iterations, host syncs, "
                         "viterbi_soft decodes and kernel launches")
     p.add_argument("--verbose", action="store_true")
+    p.add_argument("--scan", action="store_true",
+                   help="long-capture mode: find every packet in the "
+                        "--input-file-name complex16 capture and decode "
+                        "them all with the in-language receiver, frame-"
+                        "batched (phy/search.scan_and_decode); writes "
+                        "the concatenated validated payload bits")
+    p.add_argument("--batch-input-files", metavar="F1,F2,...",
+                   help="run the program over N input files, chunk-"
+                        "machine steps batched across them "
+                        "(backend/framebatch.run_many); needs "
+                        "--batch-output-files")
+    p.add_argument("--batch-output-files", metavar="O1,O2,...",
+                   help="one output file per --batch-input-files entry")
     p.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                    help="where device work runs: the card (default) or "
                         "the CPU; with no card the driver raises unless "
@@ -377,6 +392,11 @@ def _overrides(args) -> Dict[str, str]:
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "lint":
+        # static analysis of the port's tree: pure AST, dispatched
+        # before the flags are parsed and before torch is imported
+        from ziria_tpu_torch.analysis.__main__ import main as lint_main
+        return lint_main(argv[1:])
     if argv and argv[0] in REFUSED_SUBCOMMANDS:
         print(f"ziria_tpu_torch: the `{argv[0]}` subcommand is not ported "
               f"yet (ROADMAP Queue 1 item "
@@ -454,6 +474,8 @@ def _main_run(args) -> int:
 
 def _run_cmd(args) -> int:
     dev = _device(args.platform)
+    if args.scan:
+        return _run_scan(args, dev)
     comp, src_in_ty, src_out_ty = _resolve_prog(args)
     in_ty = args.input_type or src_in_ty or "int32"
     out_ty = args.output_type or src_out_ty or "int32"
@@ -468,11 +490,17 @@ def _run_cmd(args) -> int:
         comp = fold(comp)
     if args.ddump_fold:
         print(comp, file=sys.stderr)
+    if args.ddump_vect:
+        from ziria_tpu_torch.core.vectorize import vectorize
+        print(vectorize(comp, device=dev).dump(), file=sys.stderr)
     if args.ddump_hybrid:
         from ziria_tpu_torch.backend.hybrid import hybridize
         print("hybrid plan:", file=sys.stderr)
         hybridize(comp, dump=lambda s: print(s, file=sys.stderr),
                   device=dev)
+
+    if args.batch_input_files or args.batch_output_files:
+        return _run_batch_files(comp, args, in_ty, out_ty, dev)
 
     in_spec = StreamSpec(kind=args.input, ty=in_ty,
                          path=args.input_file_name,
@@ -516,11 +544,115 @@ def _run_cmd(args) -> int:
         print(f"run: backend={backend} do-blocks device={c['blocks_device']}"
               f" host={c['blocks_host']} device_loop_iters="
               f"{c['device_loop_iters']} syncs={c['syncs']} viterbi_soft="
-              f"{c['viterbi']} launches={c['launches']}", file=sys.stderr)
+              f"{c['viterbi']} launches={c['launches']} chunk="
+              f"{c['chunk']}", file=sys.stderr)
+    if args.verbose or args.ddump_hybrid or args.stats:
+        _report_demoted()
     if args.verbose:
         print(f"items in: {xs.shape[0]}, items out: {ys.shape[0]}, "
               f"time: {dt:.4f}s "
               f"({xs.shape[0] / max(dt, 1e-12):,.0f} items/s)",
+              file=sys.stderr)
+    return 0
+
+
+def _run_scan(args, dev) -> int:
+    """--scan: the long-capture workflow, packet search and a frame-
+    batched decode of every hit (phy/search.scan_and_decode). The
+    program is fixed (the in-language receiver); --src/--prog are
+    rejected so a mismatch cannot pass silently."""
+    if args.src or args.prog:
+        raise SystemExit("--scan uses the in-language receiver; drop "
+                         "--src/--prog")
+    if args.profile or args.profile_trace or args.stats \
+            or args.state_in or args.state_out \
+            or args.batch_input_files or args.batch_output_files:
+        raise SystemExit("--scan cannot combine with --profile/"
+                         "--profile-trace/--stats/--state-*/--batch-*")
+    if args.input != "file" or not args.input_file_name:
+        raise SystemExit("--scan needs --input=file with "
+                         "--input-file-name (a complex16 capture)")
+    # fail on a bad output spec BEFORE the scan spends minutes
+    out_spec = StreamSpec(kind=args.output, ty="bit",
+                          path=args.output_file_name,
+                          mode=args.output_file_mode)
+    from ziria_tpu_torch.phy.search import scan_and_decode
+
+    xs = read_stream(StreamSpec(kind="file", ty="complex16",
+                                path=args.input_file_name,
+                                mode=args.input_file_mode))
+    reset_counters()
+    t0 = time.perf_counter()
+    hits = scan_and_decode(xs, device=dev)
+    dt = time.perf_counter() - t0
+    payload = (np.concatenate([b for _s, b in hits])
+               if hits else np.empty((0,), np.uint8))
+    write_stream(out_spec, payload)
+    LAST_RUN.clear()
+    LAST_RUN.update(backend="scan", seconds=dt, items_in=int(xs.shape[0]),
+                    items_out=int(payload.shape[0]),
+                    packets=[s for s, _b in hits], **counters())
+    if args.verbose:
+        _report_demoted()
+        print(f"scan: {xs.shape[0]} samples, {len(hits)} packet(s) "
+              f"validated at {[s for s, _b in hits]}, "
+              f"{payload.shape[0]} payload bits, time: {dt:.3f}s",
+              file=sys.stderr)
+    return 0
+
+
+def _run_batch_files(comp, args, in_ty, out_ty, dev) -> int:
+    """--batch-input-files: N independent streams through one
+    hybridized program, chunk-machine steps batched across them
+    (backend/framebatch.run_many). Each stream's output goes to the
+    matching --batch-output-files entry, equal to N separate runs."""
+    if not (args.batch_input_files and args.batch_output_files):
+        raise SystemExit("--batch-input-files and --batch-output-files "
+                         "must be given together")
+    ins = [f for f in args.batch_input_files.split(",") if f]
+    outs = [f for f in args.batch_output_files.split(",") if f]
+    if len(ins) != len(outs):
+        raise SystemExit(
+            f"--batch-*: {len(ins)} inputs but {len(outs)} outputs")
+    if args.backend == "jit":
+        args.backend = "hybrid"           # the documented implication
+    if args.backend != "hybrid" or args.profile or args.profile_trace \
+            or args.stats or args.state_in or args.state_out:
+        raise SystemExit("--batch-input-files runs the hybrid backend "
+                         "and cannot combine with --sp/--pp/--profile/"
+                         "--profile-trace/--stats/--state-*")
+
+    from ziria_tpu_torch.backend.chunked import STATS
+    from ziria_tpu_torch.backend.framebatch import StepBatcher, run_many
+    from ziria_tpu_torch.backend.hybrid import hybridize
+
+    frames = [read_stream(StreamSpec(kind="file", ty=in_ty, path=f,
+                                     mode=args.input_file_mode))
+              for f in ins]
+    hyb = hybridize(comp, device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    b = StepBatcher(len(frames))
+    results = run_many(hyb, [list(x) for x in frames], batcher=b)
+    dt = time.perf_counter() - t0
+    for f, res in zip(outs, results):
+        write_stream(StreamSpec(kind="file", ty=out_ty, path=f,
+                                mode=args.output_file_mode),
+                     _host(res.out_array()))
+    LAST_RUN.clear()
+    LAST_RUN.update(backend="hybrid", seconds=dt, frames=len(frames),
+                    device_calls=b.device_calls,
+                    group_sizes=list(b.group_sizes),
+                    replays=STATS["replays"],
+                    host_reads=STATS["host_reads"], **counters())
+    if args.verbose or args.ddump_hybrid:
+        _report_demoted()
+    if args.verbose:
+        n_in = sum(x.shape[0] for x in frames)
+        n_out = sum(len(r.outputs) for r in results)
+        print(f"batch: {len(frames)} streams, items in: {n_in}, "
+              f"items out: {n_out}, device calls: {b.device_calls} "
+              f"(group sizes {b.group_sizes}), time: {dt:.4f}s",
               file=sys.stderr)
     return 0
 
@@ -612,19 +744,20 @@ LAST_RUN: dict = {}
 
 
 def reset_counters() -> None:
-    from ziria_tpu_torch.backend import hybrid
+    from ziria_tpu_torch.backend import chunked, hybrid
     from ziria_tpu_torch.frontend import eval as E
     from ziria_tpu_torch.frontend import externals
     from ziria_tpu_torch.ops import viterbi_cuda
     E.reset_counts()
     hybrid.reset_counts()
+    chunked.reset_counts()
     for k in externals.VITERBI_CALLS:
         externals.VITERBI_CALLS[k] = 0
     viterbi_cuda.reset_launches()
 
 
 def counters() -> dict:
-    from ziria_tpu_torch.backend import hybrid
+    from ziria_tpu_torch.backend import chunked, hybrid
     from ziria_tpu_torch.frontend import eval as E
     from ziria_tpu_torch.frontend import externals
     from ziria_tpu_torch.ops import viterbi_cuda
@@ -633,8 +766,18 @@ def counters() -> dict:
             "device_loop_iters": E.COUNTS["device_loop_iters"],
             "syncs": E.COUNTS["syncs"],
             "viterbi": dict(externals.VITERBI_CALLS),
+            "chunk": dict(chunked.STATS, demoted=len(chunked.DEMOTED)),
             "launches": {k: v for k, v in viterbi_cuda.LAUNCHES.items()
                          if v}}
+
+
+def _report_demoted() -> None:
+    """One stderr line per chunk machine that the run's discovery pass
+    sent back to the interpreter (chunked.DEMOTED)."""
+    from ziria_tpu_torch.backend import chunked
+    for label, why in chunked.DEMOTED:
+        print(f"chunk machine demoted to the interpreter: {label}: {why}",
+              file=sys.stderr)
 
 
 def _run_backend(comp, xs, args, t0, dev):

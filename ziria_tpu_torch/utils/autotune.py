@@ -59,6 +59,7 @@ def default_candidates(base: Geometry) -> List[Candidate]:
         if cl > base.frame_len:
             out.append((f"chunk{cl}", base.replace(chunk_len=cl)))
     if base.viterbi_radix != 4:
+        # ziria: lint-ignore[R6] a search candidate: the alternative radix itself, whose winner reaches Geometry.tuned()
         out.append(("radix4", base.replace(viterbi_radix=4)))
     if not base.fused_demap:
         out.append(("fused_demap", base.replace(fused_demap=True)))

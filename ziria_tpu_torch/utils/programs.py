@@ -364,7 +364,7 @@ class Observatory:
         return out
 
     @contextmanager
-    def profile(self, name: str, device="cpu",
+    def profile(self, name: str, device="cuda",
                 trace_dir: Optional[str] = None):
         """Run the block under ``torch.profiler`` (CUDA activity on a
         CUDA ``device``), every site a ``record_function`` range; on
@@ -529,7 +529,7 @@ def coverage(seen_labels, sites: Optional[List[Dict]] = None
 # ---------------------------------------------------------------- drivers
 
 
-def run_driver(device="cpu") -> None:
+def run_driver(device="cuda") -> None:
     """Every dispatch surface once at a tiny geometry: per-capture and
     batched receive, the staged and fused link, the channel, the BER
     paths, a stream (and its degraded twin under an injected fatal
@@ -561,6 +561,7 @@ def run_driver(device="cpu") -> None:
     pb = np.stack(psdus)
     link.loopback_ber_bits(pb, rates[0], 8.0, 7, device=device)
     link.sweep_ber(pb, (rates[0],), (8.0,), (7,), device=device)
+    # ziria: lint-ignore[R6] the reference serve test's stream geometry, profiled as that test runs it, not a tuned surface
     geo = dict(chunk_len=4096, frame_len=1024, max_frames_per_chunk=8,
                check_fcs=True, device=device)
     stream, _starts = link.stream_many(
@@ -696,7 +697,7 @@ def profile_batches(obs: Observatory, device,
     return right
 
 
-def collect_programs(device="cpu", batch: bool = False,
+def collect_programs(device="cuda", batch: bool = False,
                      trace_dir: Optional[str] = None) -> Dict[str, Any]:
     """The one-call sweep: the driver (or the --batch blocks) under an
     observatory, each profile attributed, and the sites the run reached
