@@ -252,7 +252,35 @@ Phases, each printing one JSON line:
    ms. ``autotune --frames 8 --reps 2`` into a record file of
    its own: the winner identity-clean, ``Geometry.tuned`` reproducing
    it, no file of the checkout changed. At most ``OBSERVE_BUDGET_S``;
-15. timing: ``receive_many`` in every decode mode, the modes in turns
+15. mesh: the port's ``parallel/`` on the card, every sharded run over
+   ``MESH_ENTRIES`` (4) entries of ``cuda:0`` (the card's counterpart of
+   the reference tests' virtual devices), launch counts zeroed just
+   before each run and read just after. ``fleet_wide`` (8 streams of 16
+   1000-byte frames, chunk 131,072) default and ``fused_demap`` through
+   ``MultiStreamReceiver(mesh=)``: every frame right and equal to the
+   fleet phase's unsharded run of the same streams (held there to their
+   lone receivers); 4 ACS (fused) and 4 traceback launches a decode
+   dispatch, one a shard; each shard's kernels at its first decode's
+   inputs bitwise equal to their plain versions. ``sweep_ber_sharded``
+   over the sweep phase's PSDUs and grid equal to ``sweep_ber`` count
+   for count, 4 ACS and 4 traceback launches a (point, rate). The
+   packet search over ``SCAN_RATES``' 8-packet capture split over 4
+   ``sp`` entries: the metric within 2e-4 of the unsharded one, the
+   starts and ``scan_and_decode``'s packets equal (timed unsharded,
+   sharded, unsharded: the first pays the receiver's compile).
+   ``stream_parallel`` (4 entries) of a scrambler phase counter with its
+   ``advance`` and of
+   the 5-tap FIR with ``memory=5`` (``--prog`` ``scramble`` and
+   ``fir``, over the golden ``scrambler`` and ``fir`` inputs) and
+   ``lower_stage_parallel`` (2 entries) of each program piped into
+   itself, equal to ``run_jit`` (the scrambler bitwise, the FIR within
+   1e-5). The CLI: ``--sp=1`` and ``--pp=1 --pp-costs=measured`` equal
+   the runs without them; ``--sp=4`` and ``--pp=2`` refuse with the
+   reference's message on one card. An NCCL process group of one up,
+   one all_reduce, down. ``ServeConfig(shard=True)`` (an unsharded fleet
+   on one card, the elastic rule) equal to ``shard=False``. At most
+   ``MESH_BUDGET_S``;
+16. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -265,7 +293,7 @@ Phases, each printing one JSON line:
    it can; the traceback also on the fused path's words (zero past each
    frame's stop).
 
-Phases 5-14 also print their wall seconds (``phase_s``). Then a
+Phases 5-15 also print their wall seconds (``phase_s``). Then a
 ``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
@@ -464,6 +492,15 @@ OBSERVE_BUDGET_S = 120.0
 OBSERVE_LAUNCHED = {"receive_many": ("acs", "traceback"),
                     "receive_many_fused": ("traceback", "fused_mixed"),
                     "fxp_batch": ("acs", "traceback")}
+# the mesh phase: entries of cuda:0 a sharded run takes (the card's
+# counterpart of the reference tests' virtual devices), the serve check's
+# clients, the stage pipeline's entries, the CLI's golden programs
+MESH_ENTRIES = 4
+MESH_PP = 2
+MESH_SERVE = (4, 4, 12)          # sessions, frames a session, PSDU bytes
+MESH_SP_PROG = "interleaver"     # stateless: --sp=1 and the --sp refusal
+MESH_PP_PROG = "qam16"           # two stages: the --pp=2 refusal
+MESH_BUDGET_S = 120.0
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
@@ -885,21 +922,33 @@ class StepTimer:
 
 
 class KernelTap:
-    """While active, records the arguments of the first call of each
-    kernel wrapper named (module, function name); the wrapper runs as
-    before and counts its own launch. The tensors are kept, not copied:
-    the decode makes each wrapper's inputs afresh and never writes them
-    after the call."""
+    """While active, records the arguments of the first `n` calls of each
+    kernel wrapper named (module, function name): ``args`` the first
+    call's, :meth:`shard` the i-th's (one a shard of a sharded
+    dispatch); the wrapper runs as before and counts its own launch. The
+    tensors are kept, not copied: the decode makes each wrapper's inputs
+    afresh and never writes them after the call."""
 
-    def __init__(self, wrappers):
-        self.wrappers, self.args = wrappers, {}
+    def __init__(self, wrappers, n: int = 1):
+        self.wrappers, self.n, self.calls = wrappers, n, {}
+
+    @property
+    def args(self):
+        return {name: c[0] for name, c in self.calls.items()}
+
+    def shard(self, i: int):
+        view = KernelTap([])
+        view.calls = {name: c[i:] for name, c in self.calls.items()}
+        return view
 
     def __enter__(self):
         self.saved = [(m, n, getattr(m, n)) for m, n in self.wrappers]
         for m, n, fn in self.saved:
             def tapped(*a, fn=fn, n=n, **k):
-                self.args.setdefault(n, ([list(v) if isinstance(v, list)
-                                          else v for v in a], dict(k)))
+                got = self.calls.setdefault(n, [])
+                if len(got) < self.n:
+                    got.append(([list(v) if isinstance(v, list) else v
+                                 for v in a], dict(k)))
                 return fn(*a, **k)
             setattr(m, n, tapped)
         return self
@@ -1234,7 +1283,8 @@ def fleet_phase(rng, dev, card):
     """The S-stream fleet on the card (the docstring's phase 6):
     fleet_default, fleet_wide in the default and fused modes, and a
     fleet checkpoint half way through fleet_wide. Returns (the phase's
-    JSON object, each run's launches, each run's kernel checks)."""
+    JSON object, each run's launches, each run's kernel checks, and the
+    wide streams with each wide run's frames, for the mesh phase)."""
     import torch
 
     from ziria_tpu_torch.backend import framebatch
@@ -1352,7 +1402,9 @@ def fleet_phase(rng, dev, card):
              "checkpoint_resume": {"split_at_sample": half,
                                    "lanes": len(blobs),
                                    "frames": len(got), "equal": True}},
-            launches_of, checks_of)
+            launches_of, checks_of,
+            {"streams": made, "frames": {n: frames_of[n] for n in
+                                         ("fleet_wide", "fleet_wide_fused")}})
 
 
 def serve_clients(rng, dev, serve):
@@ -1781,7 +1833,8 @@ def sweep_phase(rng, dev, card):
     PSDUs, SWEEP_RATES x SWEEP_SNRS x SWEEP_SEEDS, launch counts zeroed
     just before and read just after; held to a loop of
     loopback_ber_bits at SWEEP_LOOP_POINTS. Returns (the phase's JSON
-    object, its launches)."""
+    object, its launches, and its PSDUs and counts for the mesh
+    phase)."""
     import torch
 
     from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
@@ -1825,7 +1878,7 @@ def sweep_phase(rng, dev, card):
              "errors": errs.tolist(), "ber": ber, "ms": ms,
              "ms_per_point_rate": ms / n_decodes, "launches": launches,
              "equal_to_loop_at": [list(p) for p in SWEEP_LOOP_POINTS]},
-            launches)
+            launches, (psdus, errs))
 
 
 def fxp_primitive_checks(rng, dev):
@@ -2439,6 +2492,256 @@ def synth_phase(rng, dev, card):
              "frames_right": n_right,
              "launches": launches, "equal_to_lone_receivers": True},
             launches)
+
+
+def mesh_phase(rng, dev, card, fleet_wide, sweep_run):
+    """The mesh on the card (the docstring's phase 15): the wide fleets
+    over MESH_ENTRIES entries of one card against the fleet phase's
+    unsharded runs, each shard's kernels held to their plain versions;
+    sweep_ber_sharded against the sweep phase's counts; the sharded
+    packet search; stream_parallel and lower_stage_parallel against
+    run_jit; the CLI's --sp/--pp; an NCCL world of one; ServeConfig
+    .shard. Returns (the phase's JSON object, each run's launches)."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from ziria_tpu_torch.backend import framebatch
+    from ziria_tpu_torch.backend.execute import run_jit
+    from ziria_tpu_torch.core import ir
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.parallel import (lower_stage_parallel, multihost,
+                                          stream_parallel)
+    from ziria_tpu_torch.parallel.mesh import Mesh
+    from ziria_tpu_torch.phy import link, search
+    from ziria_tpu_torch.runtime import cli, serve
+    from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream
+    from ziria_tpu_torch.utils import dispatch
+
+    n = MESH_ENTRIES
+    dp, sp = Mesh([dev] * n, ("dp",)), Mesh([dev] * n, ("sp",))
+    out, launches_of, checks_of = {}, {}, {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        vc.reset_launches()
+        vf.reset_launches()
+        with dispatch.count_dispatches() as d:
+            got, ms = host_ms(fn)
+        return got, ms, {**vc.LAUNCHES, **vf.LAUNCHES}, dict(d.counts)
+
+    # 1. the wide fleets, default and fused, over n entries of the card
+    made = fleet_wide["streams"]
+    xs = [x for x, _s, _t in made]
+    for name, knobs in (("fleet_wide", {}),
+                        ("fleet_wide_fused", {"fused_demap": True})):
+        fused = bool(knobs)
+        acs_key = "fused_mixed" if fused else "acs"
+        tap = KernelTap([(vc, "traceback"),
+                         (vf, "fused_acs_mixed") if fused else (vc, "acs")],
+                        n)
+
+        def run(knobs=knobs):
+            msr = framebatch.MultiStreamReceiver(
+                check_fcs=True, mesh=dp, device=dev, **STREAM_WIDE,
+                **knobs)
+            got = push_fleet(msr, xs, 0, max(x.shape[0] for x in xs)) \
+                + msr.flush()
+            return by_stream(got, msr.s), msr.stats
+        with tap:
+            (per, st), ms, launches, counts = counted(run)
+        decodes = counts.get("rx.stream_decode_multi", 0)
+        want = {k: 0 for k in launches}
+        want.update({acs_key: n * decodes, "traceback": n * decodes})
+        check(decodes > 0 and launches == want,
+              f"mesh {name}: launches {launches}, want {want} ({n} a "
+              f"decode dispatch, one a shard)")
+        check(counts.get("rx.stream_chunk_multi", 0) == st.chunk_steps
+              and not st.degraded and st.lane_blowups == 0,
+              f"mesh {name}: dispatches {counts}, stats {st}")
+        for i, (x, starts, truth) in enumerate(made):
+            check(right(per[i], starts, truth),
+                  f"mesh {name}: stream {i} decoded wrongly")
+            check(same_frames(per[i], fleet_wide["frames"][name][i]),
+                  f"mesh {name}: stream {i} differs from the unsharded "
+                  f"fleet (held to its lone receiver in the fleet phase)")
+        launches_of[name] = launches
+        # after the counts are read: these launches compare and count
+        # nowhere
+        checks_of[name] = [stream_kernel_checks(
+            torch, f"mesh {name} shard {i}", tap.shard(i), fused)
+            for i in range(n)]
+        n_samples = sum(x.shape[0] for x in xs)
+        out[name] = {"entries": n, "knobs": knobs, "ms": ms,
+                     "samples_per_s": n_samples / ms * 1e3,
+                     "chunk_steps": st.chunk_steps,
+                     "decode_dispatches": decodes, "launches": launches,
+                     "equal_to_unsharded_fleet": True,
+                     "shard_kernels": checks_of[name]}
+
+    # 2. the sweep with its lanes over n entries
+    psdus, errs = sweep_run
+    got, ms, launches, _c = counted(lambda: link.sweep_ber_sharded(
+        psdus, SWEEP_RATES, SWEEP_SNRS, SWEEP_SEEDS, mesh=dp, device=dev))
+    n_dec = len(SWEEP_RATES) * len(SWEEP_SNRS) * len(SWEEP_SEEDS)
+    want = {k: 0 for k in launches}
+    want.update(acs=n * n_dec, traceback=n * n_dec)
+    check(launches == want, f"mesh sweep: launches {launches}, want {want}")
+    check(np.array_equal(got, errs),
+          "mesh sweep: sweep_ber_sharded differs from sweep_ber")
+    launches_of["sweep_sharded"] = launches
+    out["sweep_sharded"] = {"entries": n, "ms": ms, "launches": launches,
+                            "equal_to_sweep_ber": True}
+
+    # 3. the packet search with its metric over n sp entries
+    cap, _psdus, put = scan_capture(rng, dev)
+    m1 = search.detection_metric(cap, device=dev)
+    mn = search.detection_metric(cap, mesh=sp, device=dev)
+    err = float(np.abs(m1 - mn).max())
+    check(m1.shape == mn.shape and err <= 2e-4,
+          f"mesh search: sharded metric off by {err}")
+    starts = search.find_packets(cap, device=dev)
+    check(np.array_equal(starts, search.find_packets(cap, mesh=sp,
+                                                     device=dev)),
+          "mesh search: sharded starts differ")
+    # unsharded, sharded, unsharded: the first call on this device pays
+    # the receiver's compile and graph captures
+    (hits1, ms_first), (hits, ms), (_h, ms1) = (
+        host_ms(lambda m=m: search.scan_and_decode(cap, mesh=m, device=dev))
+        for m in (None, sp, None))
+    check(len(hits) == len(put) == len(hits1)
+          and all(a == b and np.array_equal(x, y)
+                  for (a, x), (b, y) in zip(hits, hits1)),
+          f"mesh search: scan_and_decode over the mesh found "
+          f"{[h for h, _b in hits]}, unsharded {[h for h, _b in hits1]}")
+    out["search"] = {"entries": n, "packets": len(hits),
+                     "metric_max_abs_err": err, "ms": ms,
+                     "unsharded_ms": ms1, "unsharded_first_ms": ms_first,
+                     "starts_equal": True}
+
+    # 4. the compiler's programs: a scrambler phase counter with its
+    # fast-forward and the 5-tap FIR with its memory over n sp entries,
+    # each program twice as a 2-stage pipeline over MESH_PP pp entries
+    here = os.path.dirname(os.path.abspath(__file__))
+    gold = os.path.join(here, "examples", "golden")
+    bits = read_stream(StreamSpec(ty="bit", path=os.path.join(
+        gold, "scrambler.infile"), mode="dbg"))
+    samples = read_stream(StreamSpec(ty="float32", path=os.path.join(
+        gold, "fir.infile"), mode="dbg"))
+    scr, fir = cli.PROGS["scramble"](), cli.PROGS["fir"]()
+    progs = {"scramble": (ir.map_accum(scr.f, 0, name="scramble",
+                                       advance=lambda p, k: p + k), bits),
+             "fir": (ir.map_accum(fir.f, np.zeros(5, np.float32),
+                                  name="fir5", memory=5), samples)}
+    pp = Mesh([dev] * MESH_PP, ("pp",))
+    compiled = {}
+    for name, (comp, items) in progs.items():
+        want = run_jit(comp, items, device=dev)
+        got, ms = host_ms(lambda: stream_parallel(comp, items, sp))
+        e1 = float(np.abs(np.asarray(got, np.float64) - want).max())
+        pipe2 = ir.par_pipe(comp, comp)
+        lo = lower_stage_parallel(pipe2, pp, width=8,
+                                  in_item=(items.shape[1:], items.dtype))
+        m = items.shape[0] // lo.take
+        ys = lo.run(items[:m * lo.take].reshape((m, lo.take)
+                                                + items.shape[1:]))
+        want2 = run_jit(ir.pipe(comp, comp), items[:m * lo.take],
+                        width=8, device=dev)
+        e2 = float(np.abs(ys.reshape(want2.shape).astype(np.float64)
+                          - want2).max())
+        tol = 0.0 if name == "scramble" else 1e-5
+        check(got.shape == want.shape and e1 <= tol and e2 <= tol,
+              f"mesh {name}: stream_parallel off by {e1}, stage "
+              f"pipeline by {e2}")
+        compiled[name] = {"items": int(items.shape[0]), "sp_ms": ms,
+                          "sp_max_abs_err": e1, "pp_max_abs_err": e2,
+                          "pp_macro_steps": m}
+    out["compiler"] = compiled
+
+    # 5. the CLI's mesh flags on the card's one device
+    flags = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, prog, extra in (
+                ("sp1", MESH_SP_PROG, ("--sp=1",)),
+                ("pp1_measured", "scrambler",
+                 ("--pp=1", "--pp-costs=measured"))):
+            runs = []
+            for tag, more in (("plain", ()), (name, extra)):
+                f = os.path.join(tmp, f"{prog}.{tag}.out")
+                rc, _o, err = cli_out(golden_argv(prog, "dbg", "jit", f,
+                                                  more))
+                check(rc == 0, f"mesh cli {name}: returned {rc}: "
+                               f"{err[-300:]}")
+                with open(f) as fh:
+                    runs.append(fh.read())
+            check(runs[0] == runs[1], f"mesh cli {name}: output differs "
+                                      f"from the run without {extra}")
+            flags[name] = {"program": prog, "equal_to_plain": True}
+        for name, prog, flag, msg in (
+                ("sp4", MESH_SP_PROG, "--sp=4", "--sp=4: need 4 devices, "
+                                                "only 1 visible"),
+                ("pp2", MESH_PP_PROG, "--pp=2", "--pp=2: need 2 devices, "
+                                                "only 1 visible")):
+            f = os.path.join(tmp, f"{prog}.{name}.out")
+            try:
+                cli_out(golden_argv(prog, "dbg", "jit", f, (flag,)))
+                said = None
+            except SystemExit as e:
+                said = str(e)
+            if torch.cuda.device_count() == 1:
+                check(said == msg, f"mesh cli {name}: {said!r}, want "
+                                   f"{msg!r}")
+            flags[name] = {"program": prog, "refused": said}
+    out["cli"] = flags
+
+    # 6. an NCCL world of one: up, one all_reduce, down
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    check(multihost.init_multihost(f"127.0.0.1:{port}", 1, 0,
+                                   device="cuda", timeout_s=120),
+          "mesh processes: init_multihost did not bring the group up")
+    try:
+        import torch.distributed as dist
+        v = torch.arange(4, dtype=torch.int64, device=dev)
+        dist.all_reduce(v)
+        info = multihost.mesh_info(multihost.build_mesh(dp=1, pp=1,
+                                                        device="cuda"))
+        check(dist.get_backend() == "nccl" and v.tolist() == [0, 1, 2, 3]
+              and info["n_processes"] == 1,
+              f"mesh processes: {dist.get_backend()}, {v.tolist()}, {info}")
+    finally:
+        multihost.shutdown_multihost()
+    check(not torch.distributed.is_initialized(),
+          "mesh processes: the group is still up")
+    out["processes"] = {"backend": "nccl", "world": 1,
+                        "up_down_s": time.perf_counter() - t0}
+
+    # 7. ServeConfig.shard on the one card: the elastic rule gives an
+    # unsharded fleet there; its frames equal shard=False's
+    sessions, frames, nbytes = MESH_SERVE
+    clients = serve.synth_load(sessions, frames, nbytes, seed=SYNTH_SEED,
+                               device=dev)
+    served, meshes = [], []
+    for shard in (True, False):
+        cfg = serve.ServeConfig(n_lanes=sessions, shard=shard,
+                                check_fcs=True, **SYNTH_GEO)
+        with serve.ServeRuntime(cfg, device=dev) as srv:
+            meshes.append(srv._rx.mesh)
+            served.append(serve.run_clients(srv, clients))
+    check(meshes[1] is None and (meshes[0] is None) ==
+          (torch.cuda.device_count() == 1),
+          f"mesh serve: shard=True built {meshes[0]}")
+    check(all(same_frames(served[0][c.sid], served[1][c.sid])
+              for c in clients)
+          and sum(len(v) for v in served[0].values()) == sessions * frames,
+          "mesh serve: shard=True differs from shard=False")
+    out["serve"] = {"sessions": sessions, "frames": sessions * frames,
+                    "mesh": None if meshes[0] is None else meshes[0].size,
+                    "equal": True}
+    return {"phase": "mesh", "card": card, "runs": out}, launches_of
 
 
 def run_zir(src, infile, mode, backend, outfile, platform, extra=()):
@@ -3116,7 +3419,8 @@ def main(argv=None) -> int:
     t_ph = emit_timed(stream_line, t_ph)
 
     # ---- 6. the S-stream fleet, 7. the serving runtime
-    fleet_line, fleet_launches, fleet_checks = fleet_phase(rng, dev, card)
+    fleet_line, fleet_launches, fleet_checks, fleet_wide = fleet_phase(
+        rng, dev, card)
     t_ph = emit_timed(fleet_line, t_ph)
     serve_line, fleet_launches["serve"] = serve_phase(rng, dev, card)
     t_ph = emit_timed(serve_line, t_ph)
@@ -3124,7 +3428,7 @@ def main(argv=None) -> int:
     # ---- 8. the loopback link, 9. the BER sweep, 10. the load generator
     link_line, link_launches, link_checks = link_phase(rng, dev, card)
     t_ph = emit_timed(link_line, t_ph)
-    sweep_line, sweep_launches = sweep_phase(rng, dev, card)
+    sweep_line, sweep_launches, sweep_run = sweep_phase(rng, dev, card)
     t_ph = emit_timed(sweep_line, t_ph)
     synth_line, synth_launches = synth_phase(rng, dev, card)
     t_ph = emit_timed(synth_line, t_ph)
@@ -3148,7 +3452,12 @@ def main(argv=None) -> int:
     observe_line, observe_launches = observe_phase(rng, dev, card)
     t_ph = emit_timed(observe_line, t_ph)
 
-    # ---- 15. timing
+    # ---- 15. the mesh
+    mesh_line, mesh_launches = mesh_phase(rng, dev, card, fleet_wide,
+                                          sweep_run)
+    t_ph = emit_timed(dict(mesh_line, budget_s=MESH_BUDGET_S), t_ph)
+
+    # ---- 16. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -3450,6 +3759,8 @@ def main(argv=None) -> int:
                            if name in xc},
             "observe_launches": {on: ol.get(name, 0)
                                  for on, ol in observe_launches.items()},
+            "mesh_launches": {mn: ml.get(name, 0)
+                              for mn, ml in mesh_launches.items()},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

@@ -1,9 +1,10 @@
 """The port's CLI (``python -m ziria_tpu_torch``), torch only.
 
-Flags and subcommands of the reference's driver whose modules are not
-ported exit non-zero naming their ROADMAP item (``lint`` names 4d;
-``--ddump-vect``, ``--scan`` and the ``--batch-*`` files name item 6b;
-``--sp``, ``--pp`` and ``--pp-costs`` name 5); ``--autolut``,
+Every flag and subcommand of the reference's driver parses (none is
+refused any longer: ``lint`` was item 4d; ``--ddump-vect``, ``--scan``
+and the ``--batch-*`` files item 6b; ``--sp``, ``--pp`` and
+``--pp-costs`` item 5, whose runs are held to the reference's in
+test_torch_mesh_paths); ``--autolut``,
 ``--fxp-complex16``, ``--state-in``/``--state-out``, ``--profile`` and
 ``--profile-trace`` run, and the ``serve``, ``programs`` and
 ``autotune`` subcommands reach their own parsers; without a card the
@@ -64,50 +65,49 @@ def _argv(src, inf, outf, *extra):
             f"--output-file-name={outf}", *extra]
 
 
-#: the reference's flags this driver refused before item 6b: those of
-#: item 5 still are; the rest parse (their runs are tested with their
-#: modules: test_torch_framebatch_many, test_torch_search,
-#: test_torch_vectorize)
-ONCE_REFUSED = {"--batch-input-files": ("batch_input_files", "value"),
-                "--batch-output-files": ("batch_output_files", "value"),
-                "--ddump-vect": ("ddump_vect", "store_true"),
-                "--pp": ("pp", "value"), "--pp-costs": ("pp_costs", "value"),
-                "--scan": ("scan", "store_true"), "--sp": ("sp", "value")}
+#: the reference's flags this driver once refused (items 6b and 5): each
+#: parses to the reference's dest and value (their runs are tested with
+#: their modules: test_torch_framebatch_many, test_torch_search,
+#: test_torch_vectorize, test_torch_mesh_paths)
+ONCE_REFUSED = {"--batch-input-files": ("batch_input_files", "v", "v"),
+                "--batch-output-files": ("batch_output_files", "v", "v"),
+                "--ddump-vect": ("ddump_vect", None, True),
+                "--pp": ("pp", "2", 2),
+                "--pp-costs": ("pp_costs", "measured", "measured"),
+                "--scan": ("scan", None, True), "--sp": ("sp", "2", 2)}
 
 
 @pytest.mark.parametrize("flag", sorted(ONCE_REFUSED))
-def test_refused_flag_names_its_roadmap_item(flag, capsys):
-    dest, kind = ONCE_REFUSED[flag]
-    argv = ["--src=x.zir", flag] + ([] if kind == "store_true" else ["v"])
-    if flag not in cli.REFUSED_FLAGS:
-        args = cli.build_parser().parse_args(argv)
-        assert getattr(args, dest) == (True if kind == "store_true"
-                                       else "v")
-        return
-    item = cli.REFUSED_FLAGS[flag][2]
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported yet (ROADMAP Queue 1 item {item})" in err
+def test_refused_flag_names_its_roadmap_item(flag):
+    dest, value, want = ONCE_REFUSED[flag]
+    assert flag not in cli.REFUSED_FLAGS
+    argv = ["--src=x.zir", flag] + ([] if value is None else [value])
+    assert getattr(cli.build_parser().parse_args(argv), dest) == want
 
 
-def test_scan_and_batch_files_name_item_6b(capsys):
-    """Item 6b ported framebatch.run_many, the chunked state machines,
-    the packet search and the vectorizer, so --scan, --batch-* and
-    --ddump-vect run; the mesh flags still name item 5, and no
-    subcommand is refused (lint is item 4d, ported)."""
-    assert set(cli.REFUSED_FLAGS) == {"--sp", "--pp", "--pp-costs"}
-    for flag in ("--sp", "--pp", "--pp-costs"):
-        assert cli.REFUSED_FLAGS[flag][2] == "5"
+def test_scan_and_batch_files_name_item_6b(tmp_path):
+    """Items 6b and 5 are ported: no flag or subcommand is refused, and
+    --scan --sp=2 --platform=cpu runs the packet search split over two
+    virtual CPU entries (a noise capture: no packet, an empty
+    payload)."""
+    assert cli.REFUSED_FLAGS == {}
     assert cli.REFUSED_SUBCOMMANDS == {}
     with pytest.raises(SystemExit, match="drop --src/--prog"):
         cli.main(["--src=x.zir", "--scan", "--platform=cpu"])
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--scan", "--sp=2"])
-    assert e.value.code == 2
-    assert "--sp is not ported yet (ROADMAP Queue 1 item 5)" in \
-        capsys.readouterr().err
+    cap = np.round(np.random.default_rng(2).normal(
+        scale=20.0, size=(3000, 2))).astype(np.int16)
+    inf, outf = tmp_path / "cap.bin", tmp_path / "out.bin"
+    write_stream(StreamSpec(ty="complex16", path=str(inf), mode="bin"), cap)
+    assert cli.main(["--scan", "--sp=2", "--platform=cpu", "--input=file",
+                     f"--input-file-name={inf}", "--input-file-mode=bin",
+                     "--output=file", f"--output-file-name={outf}",
+                     "--output-file-mode=bin"]) == 0
+    assert cli.LAST_RUN["backend"] == "scan"
+    assert cli.LAST_RUN["packets"] == [] and cli.LAST_RUN["items_out"] == 0
+    with pytest.raises(SystemExit, match="--sp=9: need 9 devices"):
+        cli.main(["--scan", "--sp=9", "--platform=cpu", "--input=file",
+                  f"--input-file-name={inf}", "--input-file-mode=bin",
+                  "--output=file", f"--output-file-name={outf}"])
 
 
 @pytest.mark.parametrize("flag", ["--autolut", "--fxp-complex16",

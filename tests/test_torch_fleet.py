@@ -242,13 +242,28 @@ def test_bad_geometry_knob_mesh_and_stream_ids(monkeypatch):
     with pytest.raises(ValueError, match="must exceed"):
         framebatch.MultiStreamReceiver(2, chunk_len=1024, frame_len=1024,
                                        device="cpu")
-    for call in (lambda: framebatch.MultiStreamReceiver(
-                     8, mesh=object(), **GEO, device="cpu"),
-                 lambda: framebatch.receive_streams(
-                     [np.zeros((8, 2), np.float32)], mesh=object(), **GEO,
-                     device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    # a mesh that does not divide the streams, and a mesh on the lone-
+    # receiver path: the reference's errors, word for word
+    import jax
+    from jax.sharding import Mesh as JMesh
+    from ziria_tpu_torch.parallel.mesh import Mesh
+    for fb, three, extra in (
+            (framebatch, Mesh(["cpu"] * 3, ("dp",)), {"device": "cpu"}),
+            (jfb, JMesh(np.array(jax.devices()[:3]), ("dp",)), {})):
+        msgs = []
+        for call in (lambda: fb.MultiStreamReceiver(8, mesh=three, **GEO,
+                                                    **extra),
+                     lambda: fb.receive_streams(
+                         [np.zeros((8, 2), np.float32)], mesh=three,
+                         multi=False, **GEO, **extra)):
+            with pytest.raises(ValueError) as e:
+                call()
+            msgs.append(str(e.value))
+        if fb is framebatch:
+            port_msgs = msgs
+    assert msgs == port_msgs
+    assert "must divide the mesh (3 devices)" in msgs[0]
+    assert "needs the fleet path" in msgs[1]
     per, stats = framebatch.receive_streams([], **GEO, device="cpu")
     assert per == [] and stats.streams == 0
     msr = framebatch.MultiStreamReceiver(4, **GEO, device="cpu")

@@ -742,3 +742,76 @@ def test_serve_main_on_the_card_equals_cpu(cuda, capsys):
     assert card["stats"] == cpu["stats"]
     st = card["stats"]
     assert st["admitted"] == st["closed"] == 3 and st["shed"] == 0
+
+
+def test_mesh_paths_on_card_equal_unsharded(cuda):
+    """Four mesh entries of the one card (the reference tests' virtual
+    devices, here on the card with the kernels inside each shard): a
+    4-stream fleet equal to its unsharded run with one ACS and one
+    traceback launch a shard a decode dispatch; the sharded sweep and
+    stream_parallel equal to their one-device runs."""
+    import ziria_tpu_torch as z
+    from ziria_tpu_torch.backend.execute import run_jit
+    from ziria_tpu_torch.parallel import stream_parallel
+    from ziria_tpu_torch.parallel.mesh import Mesh
+    from ziria_tpu_torch.phy import link
+
+    rng = np.random.default_rng(13)
+    # 16-byte PSDUs (FCS included): at 6 Mbit/s 7 symbols, inside a
+    # 1024-sample window
+    streams = [make_stream(rng, cuda, [6, 54, 24], [16] * 3,
+                           lambda j, n: 500, 1e-4 * (i + 1), 1024)[0]
+               for i in range(4)]
+    geo = dict(chunk_len=4096, frame_len=1024, max_frames_per_chunk=8,
+               check_fcs=True)
+    mesh = Mesh([cuda] * 4, ("dp",))
+    per, st = framebatch.receive_streams(streams, **geo, device=cuda)
+    vc.reset_launches()
+    with dispatch.count_dispatches() as d:
+        got, gst = framebatch.receive_streams(streams, mesh=mesh, **geo,
+                                              device=cuda)
+    torch.cuda.synchronize()
+    decodes = d.counts["rx.stream_decode_multi"]
+    assert decodes > 0 and vc.LAUNCHES == _only(vc, acs=4 * decodes,
+                                                 traceback=4 * decodes)
+    assert tuple(gst) == tuple(st)
+    for a, b in zip(got, per):
+        assert [f.start for f in a] == [f.start for f in b] and len(a) == 3
+        for fa, fb in zip(a, b):
+            assert fa.result.ok and fa.result.crc_ok
+            assert np.array_equal(fa.result.psdu_bits, fb.result.psdu_bits)
+    psdus = rng.integers(0, 256, (8, 40)).astype(np.uint8)
+    args = (psdus, [6, 54], [0.0, 6.0], [0])
+    np.testing.assert_array_equal(
+        link.sweep_ber_sharded(*args, mesh=mesh, device=cuda),
+        link.sweep_ber(*args, device=cuda))
+    prog = z.pipe(z.zmap(lambda x: x * 3 + 1, name="aff"),
+                  z.map_accum(lambda s, x: (s + 1, x + s), 7, name="ctr",
+                              advance=lambda s, n: s + n))
+    xs = np.arange(4 * 300 + 13, dtype=np.int32)
+    np.testing.assert_array_equal(
+        stream_parallel(prog, xs, Mesh([cuda] * 4, ("sp",))),
+        run_jit(prog, xs, device=cuda))
+
+
+def test_nccl_world_of_one(cuda):
+    """init_multihost brings an NCCL group of one up on the card (an
+    all_reduce through it) and tears it down."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ziria_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert multihost.init_multihost(f"127.0.0.1:{port}", 1, 0,
+                                    device="cuda", timeout_s=60)
+    try:
+        v = torch.arange(4, device=cuda)
+        dist.all_reduce(v)
+        assert dist.get_backend() == "nccl" and v.tolist() == [0, 1, 2, 3]
+    finally:
+        multihost.shutdown_multihost()
+    assert not dist.is_initialized()

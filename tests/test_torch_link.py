@@ -152,8 +152,19 @@ def test_link_modes_knobs_and_profiles(psdus, monkeypatch):
         tlink.loopback_many(psdus[:2], MBPS[:3], device="cpu")
     with pytest.raises(ValueError):
         tlink.loopback_many(psdus[:2], MBPS[:2], delay=-1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tlink.sweep_ber_sharded(np.zeros((2, 4), np.uint8), [6], [0.0], [0])
+    # the sweep with its lanes split over two CPU entries counts what
+    # the one-device sweep counts; lanes that do not divide the mesh
+    # are refused
+    from ziria_tpu_torch.parallel.mesh import Mesh
+    two = Mesh(["cpu"] * 2, ("dp",))
+    frames = np.stack([p[:8] for p in psdus[:3]])
+    np.testing.assert_array_equal(
+        tlink.sweep_ber_sharded(frames[:2], [54], [4.0], [3], mesh=two,
+                                device="cpu"),
+        tlink.sweep_ber(frames[:2], [54], [4.0], [3], device="cpu"))
+    with pytest.raises(ValueError, match="do not divide"):
+        tlink.sweep_ber_sharded(frames, [6], [0.0], [0], mesh=two,
+                                device="cpu")
 
 
 def test_classify_graph_every_branch():

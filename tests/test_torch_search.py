@@ -2,7 +2,8 @@
 JAX package on the CPU: the detection metric and the packet starts of
 tests/test_search.py's captures equal the reference's (metric within
 2e-6: the same float32 sums in another order; starts exact), a noise
-capture finds nothing, the sp mesh names ROADMAP item 5, and one
+capture finds nothing, the metric split over an sp mesh equals the
+reference's sharded one (within 2e-4; starts exact), and one
 scan_and_decode through the CLI's --scan returns what the reference's
 scan_and_decode returns: every packet's PSDU, at the same starts."""
 
@@ -34,12 +35,41 @@ def test_metric_and_starts_equal_the_references():
 
 
 def test_mesh_names_item_5():
-    cap = _capture_with_frames([1000], 4000)
-    for fn in (search.detection_metric, search.find_packets,
-               search.scan_and_decode):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 5"):
-            fn(cap, mesh=object(), device="cpu")
+    """Item 5 ported the sp mesh: the metric split over 8 virtual CPU
+    entries (halo exchange, zero pad and trim) is within the reference
+    test's 2e-4 of the unsharded metric and of the reference's sharded
+    one, and the starts are exact; shards shorter than the halo are
+    refused with the reference's message; scan_and_decode takes the
+    mesh."""
+    from ziria_tpu.parallel.streampar import StreamParError as JErr, \
+        stream_mesh as jstream_mesh
+    from ziria_tpu_torch.parallel.streampar import StreamParError, \
+        stream_mesh
+
+    mesh, jmesh = stream_mesh(8, device="cpu"), jstream_mesh(8)
+    for offsets, n in (([1000, 5000, 9000], 12000),
+                       ([700, 4200, 7900, 11500], 8 * 1750 + 9)):
+        cap = _capture_with_frames(offsets, n)
+        m = search.detection_metric(cap, mesh=mesh, device="cpu")
+        np.testing.assert_allclose(
+            m, search.detection_metric(cap, device="cpu"),
+            rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(
+            m, jax_search.detection_metric(cap, mesh=jmesh),
+            rtol=2e-4, atol=2e-4)
+        np.testing.assert_array_equal(
+            search.find_packets(cap, mesh=mesh, device="cpu"),
+            jax_search.find_packets(cap, mesh=jmesh))
+    short = np.random.default_rng(4).normal(size=(400, 2)) \
+        .astype(np.float32)
+    with pytest.raises(StreamParError) as e:
+        search.detection_metric(short, mesh=mesh, device="cpu")
+    with pytest.raises(JErr) as je:
+        jax_search.detection_metric(short, mesh=jmesh)
+    assert str(e.value) == str(je.value)
+    noise = np.round(np.random.default_rng(6).normal(
+        scale=20.0, size=(4000, 2))).astype(np.int16)
+    assert search.scan_and_decode(noise, mesh=mesh, device="cpu") == []
 
 
 def test_cli_scan_decodes_every_packet(tmp_path):

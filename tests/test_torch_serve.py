@@ -270,8 +270,16 @@ def test_config_geometry_and_unported_shard():
         (4, 4096, 1024, True)
     assert serve.ServeConfig()._fields == jserve.ServeConfig()._fields
     assert tuple(serve.ServeConfig()) == tuple(jserve.ServeConfig())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.ServeRuntime(serve.ServeConfig(shard=True), device="cpu")
+    # shard=True: the lanes over the widest lane-dividing mesh of the
+    # visible devices, the reference's on its 8 virtual devices (12
+    # lanes: 6 entries; 11 lanes: only 1 fits, an unsharded fleet)
+    for lanes, width in ((8, 8), (12, 6), (11, None)):
+        cfg = dict(n_lanes=lanes, shard=True, **GEO)
+        got = serve.ServeRuntime(serve.ServeConfig(**cfg), device="cpu")._rx
+        want = jserve.ServeRuntime(jserve.ServeConfig(**cfg))._rx
+        assert (None if got.mesh is None else got.mesh.size) == width == \
+            (None if want.mesh is None else want.mesh.size)
+        assert got.mesh is None or got.mesh.axis_names == ("dp",)
     with pytest.raises(ValueError, match="n_lanes"):
         serve.ServeRuntime(serve.ServeConfig(n_lanes=0),
                            receiver=Stub(1, resilience))

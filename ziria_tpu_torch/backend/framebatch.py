@@ -34,6 +34,7 @@ import torch
 from ziria_tpu_torch.backend import chunked as C
 from ziria_tpu_torch.core import ir
 from ziria_tpu_torch.ops import cplx, viterbi
+from ziria_tpu_torch.parallel import mesh as pmesh
 from ziria_tpu_torch.phy.wifi import rx as _rx
 from ziria_tpu_torch.phy.wifi.params import N_SERVICE_BITS, RATE_INDEX, \
     RATES
@@ -1014,13 +1015,6 @@ class MultiStreamStats(NamedTuple):
     degraded: bool = False     # a fleet step degraded to its twin
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a stream axis sharded over a device mesh is not ported yet "
-            "(ROADMAP.md queue 1, item 5, 'parallel/ and the mesh')")
-
-
 class MultiStreamReceiver:
     """Push-driven S-stream receiver: feed one stream with :meth:`push`
     or a slab per stream with :meth:`push_many`, close with
@@ -1034,9 +1028,16 @@ class MultiStreamReceiver:
     t is launched before t-1 is drained. Per-stream carries are
     :meth:`carry` and :attr:`carries`; a lane's :meth:`checkpoint` is
     exactly a lone receiver's, so blobs restore across the two
-    receivers and the two packages. ``mesh`` raises
-    NotImplementedError (not ported yet). Runs on `device` ("cuda" by
-    default; the tests pass "cpu")."""
+    receivers and the two packages. Runs on `device` ("cuda" by default;
+    the tests pass "cpu").
+
+    ``mesh`` (``parallel/mesh.Mesh``) splits the stream axis over its
+    `axis` (S must divide the mesh): each chunk-step uploads every
+    entry's S/n streams to it, and the scan and the decode run on each
+    shard (``rx.multi_stream_chunk_sharded`` and
+    ``rx.stream_decode_multi_sharded``), the results gathered on the
+    stream axis. A shard's lanes equal the unsharded fleet's bit for
+    bit; the degraded scan runs unsharded, as the reference's does."""
 
     def __init__(self, n_streams: Optional[int] = None,
                  chunk_len: Optional[int] = None,
@@ -1049,7 +1050,7 @@ class MultiStreamReceiver:
                  viterbi_window: Optional[int] = None,
                  viterbi_metric: Optional[str] = None,
                  viterbi_radix: Optional[int] = None, mesh=None,
-                 sanitize: bool = False,
+                 axis: str = "dp", sanitize: bool = False,
                  max_retries: Optional[int] = None,
                  watchdog_s: Optional[float] = None,
                  blowup_limit: int = 2, rejoin_after: int = 3,
@@ -1057,7 +1058,6 @@ class MultiStreamReceiver:
                  fused_demap: Optional[bool] = None,
                  geometry: Optional[_geometry.Geometry] = None,
                  device="cuda"):
-        _no_mesh(mesh)
         geo = geometry if geometry is not None else _geometry.DEFAULT
         n_streams = geo.n_streams if n_streams is None else n_streams
         if n_streams < 1:
@@ -1072,6 +1072,22 @@ class MultiStreamReceiver:
                    viterbi_radix=viterbi_radix, sanitize=sanitize,
                    max_retries=max_retries, watchdog_s=watchdog_s,
                    sco_track=sco_track, fused_demap=fused_demap)
+        if mesh is not None:
+            if n_streams % mesh.size:
+                raise ValueError(
+                    f"n_streams {n_streams} must divide the mesh "
+                    f"({mesh.size} devices): the stream axis shards "
+                    f"evenly (shard_batch's rule)")
+            mesh.require_this_process(
+                "a fleet's streams are pushed, scanned and emitted by "
+                "one process")
+            kinds = {d.type for d in mesh.devices.reshape(-1)}
+            if kinds != {self.device.type}:
+                raise ValueError(
+                    f"a fleet on {self.device} cannot shard over mesh "
+                    f"entries on {sorted(kinds)}")
+        self.mesh = mesh
+        self.axis = axis
         self.s = int(n_streams)
         self._health = [_LaneHealth(blowup_limit, rejoin_after)
                         for _ in range(self.s)]
@@ -1341,13 +1357,23 @@ class MultiStreamReceiver:
 
     def _upload(self, arrs, lanes):
         """The chunk-step and its (3, S) lane table on the device, as
-        the scan's arguments."""
+        the scan's arguments; on a mesh, each argument a list of the
+        shards' parts, each on its entry."""
+        if self.mesh is not None:
+            chunks = pmesh.shard(arrs, self.mesh, self.axis)
+            lt = pmesh.shard(lanes.T, self.mesh, self.axis)
+            return (chunks, *([p[:, i] for p in lt] for i in range(3)))
         chunks = torch.from_numpy(arrs).to(self.device, non_blocking=True)
         lt = torch.from_numpy(lanes).to(self.device, non_blocking=True)
         return (chunks, *lt)
 
     def _scan(self, chunks, valid, own_lo, own_hi):
         with cplx.exact_fp32():
+            if self.mesh is not None:
+                return _rx.multi_stream_chunk_sharded(
+                    list(zip(chunks, valid, own_lo, own_hi)), self.k,
+                    self.frame_len, self.n_sym_bucket, self._threshold,
+                    self._min_run, self._dead_zone, device=self.device)
             return _rx.multi_stream_chunk_graph(
                 chunks, valid, own_lo, own_hi, self.k, self.frame_len,
                 self.n_sym_bucket, self._threshold, self._min_run,
@@ -1460,6 +1486,15 @@ class MultiStreamReceiver:
 
     def _decode(self, segs, rows, ridx, nbits, npsdu):
         with cplx.exact_fp32():
+            if self.mesh is not None:
+                if isinstance(segs, torch.Tensor):
+                    # the degraded scan's unsharded segs
+                    segs = pmesh.shard(segs, self.mesh, self.axis)
+                return _rx.stream_decode_multi_sharded(
+                    segs, rows, ridx, nbits, npsdu, self.n_sym_bucket,
+                    self.viterbi_window, self.viterbi_metric,
+                    self.viterbi_radix, self.sco_track, self.fused_demap,
+                    device=self.device)
             return _rx.stream_decode_multi_graph(
                 segs, rows, ridx, nbits, npsdu, self.n_sym_bucket,
                 self.viterbi_window, self.viterbi_metric,
@@ -1497,9 +1532,18 @@ class MultiStreamReceiver:
 
     def _eager_chunk(self, chunks, valid, own_lo, own_hi):
         """The degraded scan: the same graph outside the guard,
-        labelled ``rx.stream_chunk_multi.eager``."""
-        with dispatch.timed("rx.stream_chunk_multi.eager"):
-            return _stage_chunk(self._scan(chunks, valid, own_lo, own_hi))
+        labelled ``rx.stream_chunk_multi.eager``, unsharded (its values
+        are the same on any mesh)."""
+        if self.mesh is not None:
+            chunks, valid, own_lo, own_hi = (
+                pmesh.gather(p, self.device)
+                for p in (chunks, valid, own_lo, own_hi))
+        with dispatch.timed("rx.stream_chunk_multi.eager"), \
+                cplx.exact_fp32():
+            return _stage_chunk(_rx.multi_stream_chunk_graph(
+                chunks, valid, own_lo, own_hi, self.k, self.frame_len,
+                self.n_sym_bucket, self._threshold, self._min_run,
+                self._dead_zone))
 
     def _mark_degraded(self, scan: bool) -> None:
         if scan:
@@ -1527,7 +1571,7 @@ def receive_streams(streams, chunk_len: Optional[int] = None,
                     viterbi_metric: Optional[str] = None,
                     viterbi_radix: Optional[int] = None,
                     multi: Optional[bool] = None, mesh=None,
-                    sco_track: Optional[bool] = None,
+                    axis: str = "dp", sco_track: Optional[bool] = None,
                     fused_demap: Optional[bool] = None,
                     geometry: Optional[_geometry.Geometry] = None,
                     device="cuda"):
@@ -1536,8 +1580,8 @@ def receive_streams(streams, chunk_len: Optional[int] = None,
     whatever S is. Returns ``(per-stream frames, MultiStreamStats)``,
     each stream's frames those of a lone :class:`StreamReceiver` on it.
     ``multi=False`` (or ZIRIA_MULTI_STREAM=0) runs S lone receivers
-    instead. ``mesh`` raises NotImplementedError (not ported yet)."""
-    _no_mesh(mesh)
+    instead. ``mesh`` splits the fleet's stream axis over its `axis`
+    (:class:`MultiStreamReceiver`); it needs the fleet path."""
     s = len(streams)
     if s == 0:
         return [], MultiStreamStats(0, 0, 0, 0, 0, 0)
@@ -1549,6 +1593,14 @@ def receive_streams(streams, chunk_len: Optional[int] = None,
               sco_track=sco_track, fused_demap=fused_demap,
               geometry=geometry, device=device)
     if not multi_stream_enabled(multi):
+        if mesh is not None:
+            # the oracle is S unsharded receivers by definition: a
+            # sharded run must never measure that in its place
+            raise ValueError(
+                "mesh sharding needs the fleet path: multi=False / "
+                "ZIRIA_MULTI_STREAM=0 runs S independent single-"
+                "stream receivers, which cannot honor a stream-axis "
+                "mesh")
         per, chunks, frames, ovf, infl = [], 0, 0, 0, 0
         for st in streams:
             got, stats = receive_stream(np.asarray(st, np.float32), **kw)
@@ -1559,7 +1611,7 @@ def receive_streams(streams, chunk_len: Optional[int] = None,
             infl = max(infl, stats.max_in_flight)
         return per, MultiStreamStats(s, chunks, frames, ovf, infl,
                                      1 if chunks else 0)
-    msr = MultiStreamReceiver(s, **kw)
+    msr = MultiStreamReceiver(s, mesh=mesh, axis=axis, **kw)
     got = msr.push_many([np.asarray(st, np.float32) for st in streams])
     got += msr.flush()
     per = [[] for _ in range(s)]

@@ -483,12 +483,15 @@ def stream_many_multi(psdus_per_stream, rates_per_stream, snr_db=np.inf,
 # ------------------------------------------------------------ BER sweeps
 
 
-def _point_noisy(frames, seed: int, snr, pname):
+def _point_noisy(frames, seed: int, snr, pname, lanes=None):
     """One BER point's channel: AWGN at `snr` with keys split from
     `seed` (the lanes' keys do not depend on the other rates), or the
-    profile's perfect-sync channel around the same AWGN."""
+    profile's perfect-sync channel around the same AWGN. `lanes` (lo,
+    n): `frames` are lanes lo.. of an n-lane batch, and draw that
+    batch's keys of their global indices."""
+    lo, n = (0, frames.shape[0]) if lanes is None else lanes
     keys = threefry.split(threefry.prng_key(seed, frames.device),
-                          frames.shape[0])
+                          n)[lo:lo + frames.shape[0]]
     prof = None if pname is None else chanprof.get_profile(pname)
     if prof is None or prof.is_flat:
         return channel.awgn(keys, frames, snr)
@@ -528,10 +531,10 @@ def loopback_ber_bits(psdus, rate_mbps: int, snr_db: float, seed: int,
 
 
 def _sweep_points(frames_by_rate, want, rates_key, n_bytes, snr_flat,
-                  seed_flat, profiles_key, sco_track, device):
+                  seed_flat, profiles_key, sco_track, device, lanes=None):
     """The sweep's device loop: every (snr, seed) point's error counts
     into one int32 buffer (points, n_profiles * n_rates), profile-major;
-    no host read."""
+    no host read. `lanes` as :func:`_point_noisy`'s."""
     profs = profiles_key or (None,)
     errbuf = torch.zeros((len(snr_flat), len(profs) * len(rates_key)),
                          dtype=torch.int32, device=device)
@@ -541,13 +544,44 @@ def _sweep_points(frames_by_rate, want, rates_key, n_bytes, snr_flat,
             for pname in profs:
                 for frames, m in zip(frames_by_rate, rates_key):
                     noisy = _point_noisy(frames, int(seed), float(snr),
-                                         pname)
+                                         pname, lanes)
                     got, _ = rx.decode_data_batch(
                         noisy, RATES[m], n_symbols(n_bytes, RATES[m]),
                         8 * n_bytes, sco_track=sco_track)
                     errbuf[p, col] = (got != want).sum(dtype=torch.int32)
                     col += 1
     return errbuf
+
+
+def _sweep_setup(psdus, rates_mbps, snr_grid, seeds, profiles):
+    """The sweep's validated inputs: (psdus, rates, profile names or
+    None, the flat snr-major points (snr, seed), PSDU bits, and the
+    reshape of flat (points, n_prof * n_rates) counts to the
+    waterfall)."""
+    psdus = np.asarray(psdus, np.uint8)
+    if psdus.ndim != 2:
+        raise ValueError("psdus must be (B, n_bytes)")
+    rates_key = tuple(int(m) for m in rates_mbps)
+    profiles_key = None if profiles is None else tuple(
+        chanprof.get_profile(p).name for p in profiles)
+    if profiles_key == ():
+        raise ValueError("profiles must be a non-empty sequence of "
+                         "profile names, or None for the unprofiled "
+                         "3-axis sweep")
+    n_prof = 1 if profiles_key is None else len(profiles_key)
+    snrs = np.asarray(snr_grid, np.float32)
+    seed_arr = np.asarray(seeds, np.int64)
+    snr_flat = np.repeat(snrs, seed_arr.shape[0])      # snr major
+    seed_flat = np.tile(seed_arr, snrs.shape[0])
+    bits = np.stack(tx._host_psdu_bits(psdus, False))
+
+    def shape(errs):
+        errs = errs.reshape(snrs.shape[0], seed_arr.shape[0], n_prof,
+                            len(rates_key))
+        out = np.transpose(errs, (3, 2, 0, 1))
+        return out[:, 0] if profiles_key is None else out
+
+    return psdus, rates_key, profiles_key, snr_flat, seed_flat, bits, shape
 
 
 def sweep_ber(psdus, rates_mbps: Sequence[int], snr_grid: Sequence[float],
@@ -562,34 +596,14 @@ def sweep_ber(psdus, rates_mbps: Sequence[int], snr_grid: Sequence[float],
     ``"flat"`` column equal to the unprofiled sweep. Divide by
     ``psdus.shape[0] * 8 * psdus.shape[1]`` for the BER. The frames of
     each rate are encoded once."""
-    psdus = np.asarray(psdus, np.uint8)
-    if psdus.ndim != 2:
-        raise ValueError("psdus must be (B, n_bytes)")
+    psdus, rates_key, profiles_key, snr_flat, seed_flat, bits, _shape = \
+        _sweep_setup(psdus, rates_mbps, snr_grid, seeds, profiles)
     n_bytes = psdus.shape[1]
-    rates_key = tuple(int(m) for m in rates_mbps)
-    profiles_key = None if profiles is None else tuple(
-        chanprof.get_profile(p).name for p in profiles)
-    if profiles_key == ():
-        raise ValueError("profiles must be a non-empty sequence of "
-                         "profile names, or None for the unprofiled "
-                         "3-axis sweep")
-    n_prof = 1 if profiles_key is None else len(profiles_key)
     device = rx.check_device(device, "sweep_ber")
     sco_track = rx.sco_track_enabled(sco_track)
-    snrs = np.asarray(snr_grid, np.float32)
-    seed_arr = np.asarray(seeds, np.int64)
-    snr_flat = np.repeat(snrs, seed_arr.shape[0])      # snr major
-    seed_flat = np.tile(seed_arr, snrs.shape[0])
-    bits = np.stack(tx._host_psdu_bits(psdus, False))
     want = torch.from_numpy(bits).to(device)
     frames_by_rate = [tx.encode_batch(psdus, m, device=device)
                       for m in rates_key]
-
-    def _shape(errs):
-        errs = errs.reshape(snrs.shape[0], seed_arr.shape[0], n_prof,
-                            len(rates_key))
-        out = np.transpose(errs, (3, 2, 0, 1))
-        return out[:, 0] if profiles_key is None else out
 
     try:
         errbuf = resilience.guarded(
@@ -629,9 +643,44 @@ def sweep_ber_sharded(psdus, rates_mbps: Sequence[int],
                       snr_grid: Sequence[float], seeds: Sequence[int],
                       mesh=None, axis: str = "dp",
                       profiles: Optional[Sequence] = None,
-                      sco_track: Optional[bool] = None) -> np.ndarray:
-    """The sweep with its frame lanes sharded over a device mesh: not
-    ported yet."""
-    raise NotImplementedError(
-        "sweep_ber_sharded is not ported yet (ROADMAP.md queue 1, item 5, "
-        "'parallel/'); run sweep_ber on one device")
+                      sco_track: Optional[bool] = None,
+                      device="cuda") -> np.ndarray:
+    """:func:`sweep_ber` with the frame lanes split over a mesh's `axis`
+    (``parallel/batch.frame_mesh(device=device)`` by default, every
+    visible device of that kind): each entry encodes, impairs and
+    decodes its shard of lanes, each lane drawing the keys of its index
+    in the whole batch, and the int error counts are summed exactly
+    (``parallel/mesh.psum``; across processes ``torch.distributed``), so
+    the counts equal the one-device sweep's on any mesh. The frame
+    batch must divide the axis. A shard that fails raises: the sharded
+    sweep has no degraded twin."""
+    from ziria_tpu_torch.parallel import batch as pbatch
+    from ziria_tpu_torch.parallel import mesh as pmesh
+
+    psdus, rates_key, profiles_key, snr_flat, seed_flat, bits, shape = \
+        _sweep_setup(psdus, rates_mbps, snr_grid, seeds, profiles)
+    if mesh is None:
+        mesh = pbatch.frame_mesh(axis=axis, device=device)
+    devs, ranks = mesh.along(axis)
+    b, n = psdus.shape[0], len(devs)
+    if b % n:
+        raise ValueError(
+            f"{b} frame lanes do not divide over the {n} entries of mesh "
+            f"axis {axis!r} (shard_batch's rule)")
+    per = b // n
+    sco_track = rx.sco_track_enabled(sco_track)
+    me = pmesh.process_rank()
+    counts = []
+    for i, (dev, r) in enumerate(zip(devs, ranks)):
+        if r != me:
+            continue
+        lo = i * per
+        want = torch.from_numpy(bits[lo:lo + per]).to(dev)
+        frames_by_rate = [tx.encode_batch(psdus[lo:lo + per], m, device=dev)
+                          for m in rates_key]
+        counts.append(_sweep_points(
+            frames_by_rate, want, rates_key, psdus.shape[1], snr_flat,
+            seed_flat, profiles_key, sco_track, dev,
+            lanes=(lo, b)).to(torch.int64))
+    total = pmesh.allreduce_sum(pmesh.psum(counts), mesh)
+    return shape(total.cpu().numpy())

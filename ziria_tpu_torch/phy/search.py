@@ -8,9 +8,10 @@ capture, on the device; every packet found is decoded by the
 in-language receiver (``examples/wifi_rx.zir``) with its chunk-machine
 steps batched across packets (``backend/framebatch.run_many``).
 
-The reference can split the metric over an ``sp`` device mesh with a
-halo exchange; that path is ROADMAP Queue 1 item 5, and ``mesh=``
-raises until it lands.
+At capture scale the metric is a windowed map over one long stream:
+with ``mesh=`` it splits over the mesh's ``sp`` axis with a halo
+exchange (``parallel/streampar.sliding_parallel``), the capture padded
+with zeros to a multiple of the axis and the padded windows trimmed.
 """
 
 from __future__ import annotations
@@ -25,22 +26,32 @@ import torch
 from ziria_tpu_torch.ops.sync import sts_autocorr
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sp-sharded packet search) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
-
-
 def detection_metric(samples, window: int = 48, mesh=None,
                      axis: str = "sp", device="cuda") -> np.ndarray:
     """STS autocorrelation metric for every window position of a
-    capture, computed on `device`. samples: (n, 2) float pairs. Returns
+    capture, computed on `device`, or with a mesh split over its `axis`
+    with a halo exchange. samples: (n, 2) float pairs. Returns
     (n - 16 - window + 1,) float32."""
-    _no_mesh(mesh)
-    x = torch.from_numpy(np.asarray(samples, np.float32)).to(device)
-    m, _ = sts_autocorr(x[None], window)
-    return m[0].cpu().numpy()
+    samples = np.asarray(samples, np.float32)
+    if mesh is None:
+        x = torch.from_numpy(samples).to(device)
+        m, _ = sts_autocorr(x[None], window)
+        return m[0].cpu().numpy()
+
+    from ziria_tpu_torch.parallel.streampar import sliding_parallel
+    span = 16 + window                        # samples per metric value
+    pad = (-len(samples)) % mesh.shape[axis]
+    if pad:
+        # zero samples give a ~zero metric (energy-normalized), and the
+        # padded windows are trimmed below anyway
+        samples = np.concatenate([samples, np.zeros((pad, 2), np.float32)])
+
+    def fn(block):
+        m, _ = sts_autocorr(block[None], window)
+        return m[0]
+
+    m = sliding_parallel(fn, samples, window=span, mesh=mesh, axis=axis)
+    return m[: len(samples) - pad - span + 1] if pad else m
 
 
 def find_packets(samples, threshold: float = 0.75, window: int = 48,

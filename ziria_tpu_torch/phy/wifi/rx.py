@@ -878,3 +878,54 @@ def stream_decode_multi_graph(segs, rows, ridx, nbits, npsdu,
                               sco_track=sco_track, fused_demap=fused_demap)
     crc = crc_psdu_many_graph(clear, idx[1])
     return clear.reshape(s, kk, -1), crc.reshape(s, kk)
+
+
+# The fleet's two programs with the stream axis over a dp mesh (the
+# reference's ``_jit_stream_chunk_multi`` / ``_jit_stream_decode_multi``
+# with a mesh, :1103-1176): each entry runs the program above on its
+# S/n streams, and the results are gathered on the stream axis. Streams
+# are independent, so nothing crosses between shards, and lane values do
+# not depend on the batch (cplx.DFT_BLOCK_ROWS): a shard's lanes equal
+# the same lanes of the unsharded fleet bit for bit.
+
+
+def multi_stream_chunk_sharded(parts, k: int, win_len: int,
+                               n_sym_bucket: int, threshold: float,
+                               min_run: int, dead_zone: int, device=None):
+    """:func:`multi_stream_chunk_graph` on each shard: `parts` is one
+    (chunks, valid, own_lo, own_hi) a mesh entry, on its device. Returns
+    the graph's outputs with every small field concatenated over the
+    shards on `device` (default: the first shard's) and segs a list of
+    the shards' own (S/n, K, need_b, 2), left on their entries for the
+    decode."""
+    outs = [multi_stream_chunk_graph(*p, k, win_len, n_sym_bucket,
+                                     threshold, min_run, dead_zone)
+            for p in parts]
+    dev = outs[0][0].device if device is None else torch.device(device)
+    small = [torch.cat([o[f].to(dev) for o in outs])
+             for f in range(len(outs[0]) - 1)]
+    return (*small, [o[-1] for o in outs])
+
+
+def stream_decode_multi_sharded(segs_parts, rows, ridx, nbits, npsdu,
+                                n_sym_bucket: int,
+                                viterbi_window: int = None,
+                                viterbi_metric: str = None,
+                                viterbi_radix: int = None,
+                                sco_track: bool = False,
+                                fused_demap: bool = False, device=None):
+    """:func:`stream_decode_multi_graph` on each shard: `segs_parts` the
+    shards' segs, the (S, K) host tables split the same way. Returns
+    (clear (S, K, ...), crc (S, K)) gathered on `device` (default: the
+    first shard's)."""
+    n = len(segs_parts)
+    s = int(np.shape(rows)[0])
+    per = s // n
+    got = [stream_decode_multi_graph(
+        sg, *(np.asarray(t)[i * per:(i + 1) * per]
+              for t in (rows, ridx, nbits, npsdu)),
+        n_sym_bucket, viterbi_window, viterbi_metric, viterbi_radix,
+        sco_track, fused_demap) for i, sg in enumerate(segs_parts)]
+    dev = got[0][0].device if device is None else torch.device(device)
+    return (torch.cat([c.to(dev) for c, _k in got]),
+            torch.cat([k.to(dev) for _c, k in got]))

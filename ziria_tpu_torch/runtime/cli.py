@@ -32,9 +32,10 @@ run into DIR. Subcommands, dispatched before the flags are parsed:
 
 Device work runs on the card (``--platform=cuda``, the default) unless
 ``--platform=cpu`` is given; with no card and no ``--platform=cpu``
-the driver raises rather than run elsewhere. Flags and subcommands of
-the reference whose modules are not ported exit non-zero naming their
-ROADMAP item.
+the driver raises rather than run elsewhere. ``--sp=N`` splits the
+stream over N devices and ``--pp=N`` pipelines the stages across N
+(``parallel/``), each mesh built on ``--platform``'s devices: the
+cards, or 8 virtual entries on the CPU.
 """
 
 from __future__ import annotations
@@ -54,17 +55,10 @@ import numpy as np
 from ziria_tpu_torch.runtime.buffers import ITEM_TYPES, StreamSpec, \
     read_stream, write_stream
 
-#: subcommands of the reference's driver that this one refuses, and
-#: the ROADMAP Queue 1 item that ports what each runs (none left)
+#: subcommands and flags of the reference's driver that this one refuses:
+#: none (every ROADMAP Queue 1 item is ported)
 REFUSED_SUBCOMMANDS: Dict[str, str] = {}
-
-#: flags of the reference's driver that this one refuses: flag -> (dest
-#: in the reference's parser, how it takes a value, ROADMAP item)
-REFUSED_FLAGS = {
-    "--pp": ("pp", "value", "5"),
-    "--pp-costs": ("pp_costs", "value", "5"),
-    "--sp": ("sp", "value", "5"),
-}
+REFUSED_FLAGS: Dict[str, tuple] = {}
 
 
 # --------------------------------------------------------------------------
@@ -156,15 +150,6 @@ KNOB_FLAGS = {
 }
 
 
-class _Refused(argparse.Action):
-    """Exit non-zero naming the ROADMAP item that ports the flag."""
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        item = REFUSED_FLAGS[option_string][2]
-        parser.exit(2, f"{parser.prog}: {option_string} is not ported "
-                       f"yet (ROADMAP Queue 1 item {item})\n")
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ziria_tpu_torch",
@@ -204,6 +189,20 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["interp", "jit", "hybrid"])
     p.add_argument("--width", type=int, default=None,
                    help="vectorization width (default: planner)")
+    p.add_argument("--sp", type=int, default=None, metavar="N",
+                   help="split the stream over N devices of --platform "
+                        "(sequence parallelism; jit backend, stateless "
+                        "or fast-forwardable pipelines)")
+    p.add_argument("--pp", type=int, default=None, metavar="N",
+                   help="auto-pipeline the stages across N devices of "
+                        "--platform (balanced |>>>| placement decided by "
+                        "the compiler; jit backend)")
+    p.add_argument("--pp-costs", choices=("proxy", "measured"),
+                   default="proxy",
+                   help="stage-cost model for --pp placement: 'proxy' "
+                        "(items moved per steady-state iteration) or "
+                        "'measured' (time each stage on a sample of "
+                        "the real input before deciding)")
     p.add_argument("--fold", action="store_true", default=True)
     p.add_argument("--no-fold", dest="fold", action="store_false")
     p.add_argument("--autolut", action="store_true",
@@ -312,10 +311,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-multi-stream", dest="multi_stream",
                    action="store_const", const=0,
                    help="S lone receivers in place of the fleet")
-    for flag, (dest, kind, _item) in REFUSED_FLAGS.items():
-        p.add_argument(flag, dest=dest, action=_Refused,
-                       nargs=0 if kind == "store_true" else None,
-                       help=argparse.SUPPRESS)
     return p
 
 
@@ -397,11 +392,6 @@ def main(argv=None) -> int:
         # before the flags are parsed and before torch is imported
         from ziria_tpu_torch.analysis.__main__ import main as lint_main
         return lint_main(argv[1:])
-    if argv and argv[0] in REFUSED_SUBCOMMANDS:
-        print(f"ziria_tpu_torch: the `{argv[0]}` subcommand is not ported "
-              f"yet (ROADMAP Queue 1 item "
-              f"{REFUSED_SUBCOMMANDS[argv[0]]})", file=sys.stderr)
-        return 2
     if argv and argv[0] == "serve":
         from ziria_tpu_torch.runtime.serve import main as serve_main
         return serve_main(argv[1:])
@@ -480,11 +470,14 @@ def _run_cmd(args) -> int:
     in_ty = args.input_type or src_in_ty or "int32"
     out_ty = args.output_type or src_out_ty or "int32"
 
+    pre_read = None      # input parsed early by --pp-costs=measured
     # autolut first: fold's map-map fusion erases in_domain declarations,
     # so the LUT rewrite must see the maps before they fuse
     if args.autolut:
         from ziria_tpu_torch.core.autolut import autolut
         comp = autolut(comp)
+    if args.pp is not None and args.pp >= 1:
+        comp, pre_read = _auto_pp(comp, args, in_ty, dev)
     if args.fold:
         from ziria_tpu_torch.core.opt import fold
         comp = fold(comp)
@@ -513,12 +506,15 @@ def _run_cmd(args) -> int:
     if args.profile and (args.state_in or args.state_out):
         raise SystemExit("--profile runs stages separately and cannot "
                          "combine with --state-in/--state-out")
-    xs = read_stream(in_spec)
+    xs = pre_read if pre_read is not None else read_stream(in_spec)
     reset_counters()
     LAST_RUN.clear()
     t0 = time.perf_counter()
 
     def run():
+        _check_mesh_flags(args)
+        if args.pp is not None:
+            return _run_auto_pp(comp, xs, args, t0, dev)
         if args.profile:
             ys = _run_profiled(comp, xs, args, dev)
             return ys, time.perf_counter() - t0, "profile"
@@ -565,25 +561,35 @@ def _run_scan(args, dev) -> int:
         raise SystemExit("--scan uses the in-language receiver; drop "
                          "--src/--prog")
     if args.profile or args.profile_trace or args.stats \
-            or args.state_in or args.state_out \
+            or args.pp is not None or args.state_in or args.state_out \
             or args.batch_input_files or args.batch_output_files:
-        raise SystemExit("--scan cannot combine with --profile/"
+        raise SystemExit("--scan cannot combine with --pp/--profile/"
                          "--profile-trace/--stats/--state-*/--batch-*")
     if args.input != "file" or not args.input_file_name:
         raise SystemExit("--scan needs --input=file with "
                          "--input-file-name (a complex16 capture)")
+    if args.sp is not None and args.sp < 1:
+        raise SystemExit(f"--sp={args.sp}: need at least 1 device")
     # fail on a bad output spec BEFORE the scan spends minutes
     out_spec = StreamSpec(kind=args.output, ty="bit",
                           path=args.output_file_name,
                           mode=args.output_file_mode)
+    from ziria_tpu_torch.parallel.streampar import StreamParError, \
+        stream_mesh
     from ziria_tpu_torch.phy.search import scan_and_decode
 
     xs = read_stream(StreamSpec(kind="file", ty="complex16",
                                 path=args.input_file_name,
                                 mode=args.input_file_mode))
-    reset_counters()
-    t0 = time.perf_counter()
-    hits = scan_and_decode(xs, device=dev)
+    try:
+        mesh = None
+        if args.sp is not None:
+            mesh = stream_mesh(args.sp, device=dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        hits = scan_and_decode(xs, mesh=mesh, device=dev)
+    except StreamParError as e:
+        raise SystemExit(f"--sp={args.sp}: {e}")
     dt = time.perf_counter() - t0
     payload = (np.concatenate([b for _s, b in hits])
                if hits else np.empty((0,), np.uint8))
@@ -617,7 +623,8 @@ def _run_batch_files(comp, args, in_ty, out_ty, dev) -> int:
     if args.backend == "jit":
         args.backend = "hybrid"           # the documented implication
     if args.backend != "hybrid" or args.profile or args.profile_trace \
-            or args.stats or args.state_in or args.state_out:
+            or args.stats or args.sp is not None \
+            or args.pp is not None or args.state_in or args.state_out:
         raise SystemExit("--batch-input-files runs the hybrid backend "
                          "and cannot combine with --sp/--pp/--profile/"
                          "--profile-trace/--stats/--state-*")
@@ -657,33 +664,6 @@ def _run_batch_files(comp, args, in_ty, out_ty, dev) -> int:
     return 0
 
 
-def _stage_runner(st, cur, width, dev):
-    """A zero-argument call running one stage over `cur` (the
-    reference's ``autosplit.stage_runner``), already run once as its
-    warm-up: the jit backend when the stage lowers, else the hybrid
-    executor, hybridized once so the warm-up warms what the timed call
-    reuses. Returns (call, backend)."""
-    from ziria_tpu_torch.backend.execute import run_jit_carry
-    from ziria_tpu_torch.backend.lower import LowerError, lower
-
-    def jit():
-        return np.asarray(run_jit_carry(st, cur, width=width,
-                                        device=dev)[0])
-    try:
-        lower(st, width=width, device=dev)
-        jit()
-        return jit, "jit"
-    except LowerError:
-        from ziria_tpu_torch.backend.hybrid import hybridize
-        from ziria_tpu_torch.interp.interp import run
-        hyb = hybridize(st, device=dev)
-
-        def hybrid():
-            return _host(run(hyb, list(cur)).out_array())
-        hybrid()
-        return hybrid, "hybrid"
-
-
 def _run_profiled(comp, xs, args, dev):
     """--profile: each top-level stage runs apart over the previous
     stage's output, a warm-up pass then a timed one, on the host clock
@@ -706,7 +686,11 @@ def _run_profiled(comp, xs, args, dev):
             go()
             how = "interp"
         else:
-            go, how = _stage_runner(st, cur, args.width, dev)
+            # jit when the stage lowers, hybrid otherwise: the stage
+            # timing of --pp-costs=measured too
+            from ziria_tpu_torch.parallel.autosplit import stage_runner
+            go = stage_runner(st, cur, width=args.width, device=dev)
+            how = go.backend
         if on_card:
             torch.cuda.synchronize(dev)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -800,6 +784,8 @@ def _run_backend(comp, xs, args, t0, dev):
                 backend)
     from ziria_tpu_torch.backend.execute import run_jit_carry
     from ziria_tpu_torch.backend.lower import LowerError, lower
+    if args.sp is not None:
+        return _run_sp(comp, xs, args, t0, dev)
     stats: Optional[dict] = {} if args.stats else None
     try:
         carry = None
@@ -851,6 +837,121 @@ def _run_backend(comp, xs, args, t0, dev):
                   f"({reps * stats['width']} per bulk step)",
                   file=sys.stderr)
     return np.asarray(ys), time.perf_counter() - t0, "jit"
+
+
+def _check_mesh_flags(args) -> None:
+    """--sp and --pp checked before any run, so neither can be ignored."""
+    if args.sp is not None:
+        if args.sp < 1:
+            raise SystemExit(f"--sp={args.sp}: need at least 1 device")
+        if args.backend != "jit" or args.profile:
+            raise SystemExit("--sp needs --backend=jit (sequence "
+                             "parallelism shards the fused pipeline) "
+                             "and cannot combine with --profile")
+    if args.pp is not None:
+        if args.pp < 1:
+            raise SystemExit(f"--pp={args.pp}: need at least 1 device")
+        if args.backend != "jit" or args.profile or args.sp is not None \
+                or args.state_in or args.state_out:
+            raise SystemExit("--pp needs --backend=jit and cannot "
+                             "combine with --sp/--profile/--state-*")
+
+
+def _auto_pp(comp, args, in_ty, dev):
+    """--pp=N's placement, decided before fold (fold fuses across >>>
+    but keeps |>>>| boundaries, so each segment still fuses inside).
+    --pp=1 goes through the pass too: any |>>>| of the source lands on
+    one device. Under --pp-costs=measured each stage is timed on the
+    first 32768 items of the real input, which the run then reuses.
+    Returns (comp, the input read, or None)."""
+    from ziria_tpu_torch.parallel.autosplit import AutoSplitError, \
+        auto_pipeline
+    sample = pre_read = None
+    if args.pp_costs == "measured":
+        # refuse before seconds of sampling that the run would refuse
+        if args.backend != "jit" or args.profile:
+            raise SystemExit("--pp needs --backend=jit and cannot "
+                             "combine with --profile")
+        pre_read = read_stream(StreamSpec(
+            kind=args.input, ty=in_ty, path=args.input_file_name,
+            mode=args.input_file_mode, dummy_items=args.dummy_samples))
+        if pre_read.shape[0] == 0:
+            raise SystemExit("--pp-costs=measured: input sample is "
+                             "empty (nothing to time)")
+        sample = pre_read[: 1 << 15]
+    try:
+        comp = auto_pipeline(comp, args.pp, sample=sample,
+                             width=args.width or 1, device=dev)
+    except AutoSplitError as e:
+        raise SystemExit(f"--pp={args.pp}: {e}")
+    return comp, pre_read
+
+
+def _run_sp(comp, xs, args, t0, dev):
+    """--sp=N: the stream split over N devices of --platform
+    (parallel/streampar.stream_parallel)."""
+    from ziria_tpu_torch.backend.lower import LowerError
+    from ziria_tpu_torch.parallel.streampar import StreamParError, \
+        stream_mesh, stream_parallel
+    if args.state_in or args.state_out:
+        raise SystemExit("--sp cannot combine with --state-in/--state-out "
+                         "(the sharded run has no single carry)")
+    if args.stats:
+        print("note: --stats reports the single-device fused plan and is "
+              "unavailable under --sp", file=sys.stderr)
+    try:
+        ys = stream_parallel(comp, xs, stream_mesh(args.sp, device=dev),
+                             width=args.width)
+    except (StreamParError, LowerError) as e:
+        raise SystemExit(f"--sp={args.sp}: {e}")
+    return np.asarray(ys), time.perf_counter() - t0, "sp"
+
+
+def _run_auto_pp(comp, xs, args, t0, dev):
+    """--pp=N: the compiler-decided stage placement across N devices of
+    --platform. Whole macro chunks run through the stage pipeline; a
+    remainder continues on one device from the segments' exit carries,
+    so any length equals the fused run."""
+    from ziria_tpu_torch.backend.execute import run_jit_carry
+    from ziria_tpu_torch.backend.lower import LowerError
+    from ziria_tpu_torch.core import ir
+    from ziria_tpu_torch.parallel.stages import lower_stage_parallel
+    from ziria_tpu_torch.parallel.streampar import StreamParError, \
+        stream_mesh
+
+    if args.stats:
+        print("note: --stats reports the fused single-device plan and "
+              "is unavailable under --pp", file=sys.stderr)
+    if args.width is not None and args.width < 1:
+        raise SystemExit(f"--width={args.width}: must be >= 1")
+    if args.width is None:
+        print("note: --pp segments run at width 1; pass --width=W to "
+              "vectorize each segment (widths multiply the macro "
+              "chunk the input length must divide)", file=sys.stderr)
+    try:
+        # main() already decided the |>>>| placement (before fold)
+        pp = lower_stage_parallel(
+            comp, stream_mesh(args.pp, axis="pp", device=dev),
+            width=args.width or 1, in_item=(xs.shape[1:], xs.dtype))
+        m = xs.shape[0] // pp.take
+        outs, carry = [], None
+        if m:
+            ys, carry = pp.run_carry(
+                xs[: m * pp.take].reshape((m, pp.take) + xs.shape[1:]))
+            outs.append(ys.reshape((m * pp.emit,) + ys.shape[2:]))
+        if xs.shape[0] > m * pp.take or not m:
+            # the remainder on the fused one-device path (the segments
+            # as one >>> pipeline, the same carry layout)
+            tail, _ = run_jit_carry(ir.pipe(*ir.par_segments(comp)),
+                                    xs[m * pp.take:], carry=carry,
+                                    width=args.width, device=dev)
+            if np.asarray(tail).shape[0]:
+                outs.append(np.asarray(tail))
+    except (LowerError, StreamParError) as e:
+        raise SystemExit(f"--pp={args.pp}: {e}")
+    ys = (np.concatenate(outs, axis=0) if outs
+          else np.empty((0,) + xs.shape[1:], xs.dtype))
+    return ys, time.perf_counter() - t0, "pp"
 
 
 def _host(ys) -> np.ndarray:

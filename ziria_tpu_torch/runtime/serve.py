@@ -28,8 +28,8 @@ one fixed S-lane fleet (counterpart of ziria_tpu/runtime/serve.py:
 Every metric goes through the ``utils/telemetry`` registry, and
 :meth:`ServeRuntime.scrape` is its Prometheus exposition. The receiver
 is injectable; the default is a ``MultiStreamReceiver`` at the config's
-geometry on `device` ("cuda" by default). ``ServeConfig.shard`` raises
-NotImplementedError (not ported yet).
+geometry on `device` ("cuda" by default); ``ServeConfig.shard`` splits
+its lanes over ``parallel/batch.elastic_mesh`` (unsharded on one card).
 """
 
 from __future__ import annotations
@@ -243,18 +243,21 @@ class ServeRuntime:
     def _default_receiver(self, device):
         from ziria_tpu_torch.backend import framebatch
         c = self.cfg
+        mesh = None
         if c.shard:
-            raise NotImplementedError(
-                "ServeConfig.shard (the lanes over a device mesh) is not "
-                "ported yet (ROADMAP.md queue 1, item 5, 'parallel/ and "
-                "the mesh')")
+            # the elastic placement rule: the lanes over the widest
+            # lane-dividing mesh the visible devices support (None on
+            # one card: an unsharded fleet), so a recovery onto fewer
+            # devices rebuilds the fleet instead of refusing to start
+            from ziria_tpu_torch.parallel import batch as pbatch
+            mesh = pbatch.elastic_mesh(c.n_lanes, device=device)
         return framebatch.MultiStreamReceiver(
             c.n_lanes, chunk_len=c.chunk_len, frame_len=c.frame_len,
             max_frames_per_chunk=c.max_frames_per_chunk,
             check_fcs=c.check_fcs, sanitize=c.sanitize,
             max_retries=c.max_retries, watchdog_s=c.watchdog_s,
             blowup_limit=c.blowup_limit, rejoin_after=c.rejoin_after,
-            device=device)
+            mesh=mesh, device=device)
 
     # -- lifecycle -------------------------------------------------------
 
