@@ -280,7 +280,35 @@ Phases, each printing one JSON line:
    one all_reduce, down. ``ServeConfig(shard=True)`` (an unsharded fleet
    on one card, the elastic rule) equal to ``shard=False``. At most
    ``MESH_BUDGET_S``;
-16. timing: ``receive_many`` in every decode mode, the modes in turns
+16. soak: ``tools/soak.soak_stats`` of the port at the reference chip
+   soak stage's arguments (``SOAK_ARGS``: 6 sessions of 4 frames on 8
+   lanes, 4 in-process fault rounds, the ``urban`` channel round, 2
+   SIGKILL rounds, seed 20260804, tick 0.05 s): every gate of the
+   campaign holds (zero crashes, every session bit-identical to its
+   uninterrupted oracle, recovery p99 within ``SOAK_SLO_S``), at least
+   one SIGKILL lands, every child process (``python -m
+   ziria_tpu_torch.tools.soak --child`` on the card) loads the kernel
+   library without running nvcc and rebuilds the parent's streams bit
+   for bit, and every recovered fleet makes at most 2 dispatches a
+   chunk-step, no nvcc run, no library load and one ACS and one
+   traceback launch a decode dispatch. With them one kind round for
+   each of the 11 menu entries (``kind_frames`` 16: streams of 16
+   frames, crashed once their input is exhausted), each kind firing
+   and each round held to the same gates; launches zeroed just before the
+   campaign and read just after; the ACS and traceback kernels at the
+   warm pass's first decode bitwise equal to their plain versions as in
+   phase 5. Then ``tools/windowed_ber``'s study (16 frames of 4096
+   bits, window 512, overlaps 32/64/96, amplitudes 0.5-1.2, the scan
+   decoder exact, the windowed decodes through the kernels, launches
+   zeroed just before and read just after: one ACS and one traceback a
+   windowed decode): at 1.2 with overlap 96 the windowed decode equals
+   the exact one, at 0.9 the BERs agree within ``SOAK_BER_ENVELOPE``,
+   and at every point and overlap the kernel path equals the plain
+   versions in the ``_decode`` hook bitwise. Prints the faults by kind,
+   each round's recovery seconds with p50 and p99, duplicates and
+   deduplicated frames, each child's CUDA init seconds and the BER
+   table. At most ``SOAK_BUDGET_S``;
+17. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -293,7 +321,7 @@ Phases, each printing one JSON line:
    it can; the traceback also on the fused path's words (zero past each
    frame's stop).
 
-Phases 5-15 also print their wall seconds (``phase_s``). Then a
+Phases 5-16 also print their wall seconds (``phase_s``). Then a
 ``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
@@ -501,6 +529,19 @@ MESH_SERVE = (4, 4, 12)          # sessions, frames a session, PSDU bytes
 MESH_SP_PROG = "interleaver"     # stateless: --sp=1 and the --sp refusal
 MESH_PP_PROG = "qam16"           # two stages: the --pp=2 refusal
 MESH_BUDGET_S = 120.0
+# the soak phase: tools/soak.soak_stats at the arguments of the
+# reference's chip soak stage (6 sessions, 8 lanes, 4 frames a session,
+# 4 fault rounds, 2 SIGKILL rounds) and a kind round for each menu entry
+# on 16-frame streams (the campaign's rounds crash one chunk-step in,
+# before any dispatch or data fault can fire), then tools/windowed_ber's
+# study at its own size; the guard's BER envelope (relative, absolute)
+SOAK_ARGS = {"n_sessions": 6, "n_lanes": 8, "frames_per_session": 4,
+             "rounds": 4, "sigkill_rounds": 2, "seed": 20260804,
+             "tick_sleep": 0.05, "channel_profile": "urban",
+             "kind_frames": 16}
+SOAK_SLO_S = 30.0
+SOAK_BER_ENVELOPE = (0.02, 2e-3)
+SOAK_BUDGET_S = 240.0
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
@@ -2744,6 +2785,105 @@ def mesh_phase(rng, dev, card, fleet_wide, sweep_run):
     return {"phase": "mesh", "card": card, "runs": out}, launches_of
 
 
+def soak_phase(dev, card):
+    """The chaos-soak campaign and the windowed BER study on the card
+    (the docstring's phase 16). Returns (the phase's JSON object, each
+    part's launches, the kernel checks at the warm pass's first
+    decode)."""
+    import torch
+
+    from ziria_tpu_torch.ops import viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.tools import soak, windowed_ber as wb
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        vc.reset_launches()
+        vf.reset_launches()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {**vc.LAUNCHES, **vf.LAUNCHES}, time.perf_counter() - t0
+
+    # 1. the campaign; the kernels held to plain at the warm pass's first
+    # decode (after the counts are read: those launches count nowhere)
+    tap = KernelTap([(vc, "acs"), (vc, "traceback")])
+    ev, soak_launches, campaign_s = counted(
+        lambda: soak.soak_stats(**SOAK_ARGS, recovery_slo_s=SOAK_SLO_S,
+                                device=dev, warm_tap=tap))
+    checks = stream_kernel_checks(torch, "soak_warm", tap, False)
+    del tap
+    posts = ev["post_recovery"]
+    check(ev["zero_crashes"] and ev["identity"] == "bit_identical"
+          and ev["recovery_p99_s"] <= SOAK_SLO_S,
+          f"soak: gates {ev['zero_crashes']}, {ev['identity']}, "
+          f"p99 {ev['recovery_p99_s']}")
+    check(ev["kills"]["killed"] >= 1, f"soak: no SIGKILL landed "
+          f"({ev['kills']})")
+    check(all(c["nvcc_builds"] == 0 and c["device"] == str(dev)
+              for c in ev["children"]),
+          f"soak: a child ran nvcc or another device: {ev['children']}")
+    check(len(posts) == 1 + len(ev["kind_rounds"])
+          + sum(c["killed"] for c in ev["children"])
+          and all(p["launches"]["acs"] == p["launches"]["traceback"]
+                  == p["decode_dispatches"] and p["dpcs"] <= 2.0
+                  and p["nvcc_builds"] == p["library_loads"] == 0
+                  for p in posts)
+          and sum(p["decode_dispatches"] for p in posts) > 0,
+          f"soak: a recovered fleet's budget: {posts}")
+    check(soak_launches["acs"] == soak_launches["traceback"] > 0
+          and sum(soak_launches.values()) == 2 * soak_launches["acs"],
+          f"soak: launches {soak_launches}")
+
+    # 2. the BER study, its windowed decodes through the kernels
+    ber, ber_launches, ber_s = counted(lambda: wb.main(device=dev))
+    n_dec = len(wb.AMPS) * len(wb.OVERLAPS)
+    check(ber_launches == {k: (n_dec if k in ("acs", "traceback") else 0)
+                           for k in ber_launches},
+          f"windowed_ber: launches {ber_launches}, want {n_dec} each")
+    pts = {p["llr_amp"]: p for p in ber["points"]}
+    ov = str(vc.DEFAULT_WINDOW_OVERLAP)
+    check(pts[1.2]["overlaps"][ov]["disagree_vs_exact"] == 0.0,
+          f"windowed_ber: amplitude 1.2, overlap {ov} differs from exact")
+    ber_e, ber_w = pts[0.9]["ber_exact"], pts[0.9]["overlaps"][ov]["ber"]
+    rel, absl = SOAK_BER_ENVELOPE
+    check(abs(ber_w - ber_e) < rel * max(ber_e, 1e-9) + absl,
+          f"windowed_ber: amplitude 0.9 BER {ber_w} against exact {ber_e}")
+    # the kernel path against the plain versions in the hook, every point
+    # and overlap, bitwise (these launches count nowhere)
+    t0 = time.perf_counter()
+    for amp, _msgs, llrs in wb.points():
+        x = torch.from_numpy(llrs).to(dev)
+        for o in wb.OVERLAPS:
+            check(torch.equal(wb.windowed(x, o),
+                              wb.windowed(x, o, _decode=wb.plain_engine)),
+                  f"windowed_ber: amplitude {amp}, overlap {o}: the kernels "
+                  f"differ from their plain versions")
+    plain_s = time.perf_counter() - t0
+    children = ev["children"]
+    return ({"phase": "soak", "card": card, "args": SOAK_ARGS,
+             "slo_s": SOAK_SLO_S, "campaign_s": campaign_s,
+             "faults_injected": ev["faults_injected"],
+             "faults_by_kind": ev["faults_by_kind"],
+             "recovery_s": ev["recovery_s"],
+             "recovery_p50_s": ev["recovery_p50_s"],
+             "recovery_p99_s": ev["recovery_p99_s"],
+             "duplicates": ev["duplicates"], "deduped": ev["deduped"],
+             "snapshots": ev["snapshots"],
+             "journal_errors": ev["journal_errors"],
+             "oracle_frames": ev["oracle_frames"],
+             "channel_round_frames": ev["channel_round_frames"],
+             "kind_rounds": ev["kind_rounds"],
+             "kills": ev["kills"], "post_recovery": posts,
+             "child_cuda_init_s": [c["cuda_init_s"] for c in children],
+             "children": children, "launches": soak_launches,
+             "kernels": checks,
+             "windowed_ber": {"s": ber_s, "launches": ber_launches,
+                              "plain_hook_s": plain_s,
+                              "equal_to_plain": True, "table": ber}},
+            {"campaign": soak_launches, "windowed_ber": ber_launches},
+            checks)
+
+
 def run_zir(src, infile, mode, backend, outfile, platform, extra=()):
     """One run of the port's CLI (``python -m ziria_tpu_torch``) on a
     file; returns (its output stream, the run's record: backend that
@@ -3457,7 +3597,14 @@ def main(argv=None) -> int:
                                           sweep_run)
     t_ph = emit_timed(dict(mesh_line, budget_s=MESH_BUDGET_S), t_ph)
 
-    # ---- 16. timing
+    # ---- 16. the chaos-soak campaign, the windowed BER study
+    soak_line, soak_launches, soak_checks = soak_phase(dev, card)
+    soak_s = time.perf_counter() - t_ph
+    t_ph = emit_timed(dict(soak_line, budget_s=SOAK_BUDGET_S), t_ph)
+    check(soak_s <= SOAK_BUDGET_S,
+          f"soak: {soak_s:.1f} s, over its {SOAK_BUDGET_S} s budget")
+
+    # ---- 17. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -3761,6 +3908,10 @@ def main(argv=None) -> int:
                                  for on, ol in observe_launches.items()},
             "mesh_launches": {mn: ml.get(name, 0)
                               for mn, ml in mesh_launches.items()},
+            "soak_launches": {sn: sl.get(name, 0)
+                              for sn, sl in soak_launches.items()},
+            "soak_shapes": ({"soak_warm": soak_checks[name]}
+                            if name in soak_checks else {}),
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

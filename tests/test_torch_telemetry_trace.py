@@ -126,10 +126,12 @@ def test_nvcc_build_is_a_compile_event(tmp_path, monkeypatch):
     fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(cuda_build, "nvcc", lambda: str(fake))
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    builds = cuda_build.COUNTS["builds"]
     with telemetry.tracing() as tr, telemetry.collect() as reg:
         info = cuda_build.build_all()
         again = cuda_build.build_all()
     assert again["viterbi"]["log"] == "cached"
+    assert cuda_build.COUNTS["builds"] == builds + 1
     evs = [e for e in tr.events() if e.get("cat") == "compile"]
     assert [e["name"] for e in evs] == ["nvcc:viterbi.cu"]
     assert evs[0]["ph"] == "X" and evs[0]["dur"] > 0

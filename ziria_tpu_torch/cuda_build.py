@@ -8,7 +8,8 @@ is rebuilt and an unchanged one is reused. Builds happen at first use
 ``csrc/build/``, which git ignores. There is no fallback: without
 ``nvcc`` the build raises. Each nvcc run is the port's only compile: it
 reports itself to ``utils/telemetry`` as a ``compile`` event named
-``nvcc:<source>`` with its seconds.
+``nvcc:<source>`` with its seconds. :data:`COUNTS` counts this
+process's nvcc runs and library loads.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: nvcc runs started and libraries loaded (ctypes) by this process
+COUNTS = {"builds": 0, "loads": 0}
 
 
 def env_cuda_home() -> str:
@@ -88,6 +91,7 @@ def build_all(names=None) -> Dict[str, dict]:
                os.path.join(CSRC, SOURCES[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        COUNTS["builds"] += 1
         jobs[name] = (out, tmp, proc)
     info = {}
     failed = []
@@ -120,5 +124,6 @@ def library(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build_all([name])
             lib = ctypes.CDLL(path)
+            COUNTS["loads"] += 1
             _libs[name] = lib
         return lib
