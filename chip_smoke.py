@@ -274,8 +274,13 @@ Phases, each printing one JSON line:
    ``fir``, over the golden ``scrambler`` and ``fir`` inputs) and
    ``lower_stage_parallel`` (2 entries) of each program piped into
    itself, equal to ``run_jit`` (the scrambler bitwise, the FIR within
-   1e-5). The CLI: ``--sp=1`` and ``--pp=1 --pp-costs=measured`` equal
-   the runs without them; ``--sp=4`` and ``--pp=2`` refuse with the
+   1e-5). A 4-tap int32 FIR with ``memory=4`` at a length that leaves
+   a tail after the bulk, and again with the two lowerings' carry
+   signatures made to differ, so that ``carry_at`` warms the tail and
+   then every shard: equal to ``run_jit``, every tensor its step sees
+   on ``cuda`` and every width-1 warm-up lowering made there. The
+   CLI: ``--sp=1`` and ``--pp=1 --pp-costs=measured`` equal the runs
+   without them; ``--sp=4`` and ``--pp=2`` refuse with the
    reference's message on one card. An NCCL process group of one up,
    one all_reduce, down. ``ServeConfig(shard=True)`` (an unsharded fleet
    on one card, the elastic rule) equal to ``shard=False``. At most
@@ -308,7 +313,27 @@ Phases, each printing one JSON line:
    each round's recovery seconds with p50 and p99, duplicates and
    deduplicated frames, each child's CUDA init seconds and the BER
    table. At most ``SOAK_BUDGET_S``;
-17. timing: ``receive_many`` in every decode mode, the modes in turns
+17. fuzz: the reference's four fuzz harnesses on the card
+   (``tools/fuzz.py``): the first ``FUZZ_SEEDS`` (4) seeds of each of
+   their ten families (combinator pipelines, ``repeat`` bodies,
+   surface functions, bit mixing, int8 AutoLUT, sp, pp, dp x sp, chunk
+   machines, frame batches) through the port's executors on ``cuda``
+   (``run_jit``, after ``fold`` and after AutoLUT; ``hybridize``, its
+   chunk machines replaying CUDA graphs; ``run_many``;
+   ``stream_parallel``, ``lower_stage_parallel`` and
+   ``stream_parallel_batched`` over ``MESH_ENTRIES`` entries of
+   ``cuda:0``), every one equal to the port's interpreter on the host
+   (which the CPU tests hold to the reference's), 0 mismatches; graph
+   replays against eager blocks per family. ``viterbi_decode_bits``
+   and ``crc32_bytes_masked`` on the card equal to the CPU's;
+   ``rx.decode_data_static`` of a 1000-byte 54 Mbit/s frame equal to
+   ``rx.receive``'s PSDU of the same frame (its ms under CUDA events);
+   ``resilience.guarded(fallback=)`` around a windowed kernel decode:
+   with no plan the kernel's bits with one ACS and one traceback
+   launch, under a fatal plan the fallback's value with no launch and
+   ``resilience.fallbacks`` at 1; a disabled chaos seam under 5 us a
+   call. At most ``FUZZ_BUDGET_S``;
+18. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -321,7 +346,7 @@ Phases, each printing one JSON line:
    it can; the traceback also on the fused path's words (zero past each
    frame's stop).
 
-Phases 5-16 also print their wall seconds (``phase_s``). Then a
+Phases 5-17 also print their wall seconds (``phase_s``). Then a
 ``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
@@ -542,6 +567,11 @@ SOAK_ARGS = {"n_sessions": 6, "n_lanes": 8, "frames_per_session": 4,
 SOAK_SLO_S = 30.0
 SOAK_BER_ENVELOPE = (0.02, 2e-3)
 SOAK_BUDGET_S = 240.0
+
+# the fuzz phase: the first seeds of each of the reference harnesses'
+# families through the port's executors on the card
+FUZZ_SEEDS = 4
+FUZZ_BUDGET_S = 150.0
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
@@ -2700,6 +2730,52 @@ def mesh_phase(rng, dev, card, fleet_wide, sweep_run):
                           "pp_macro_steps": m}
     out["compiler"] = compiled
 
+    # 4b. a memory stage's warm-up on the entries' device: a 4-tap int32
+    # FIR at a length that leaves a tail after the bulk (the tail's
+    # carry warmed by carry_at), then with the two lowerings' carry
+    # signatures made to differ (every shard warmed by carry_at); equal
+    # to run_jit, and every tensor its step sees and every width-1
+    # warm-up lowering on the card
+    from ziria_tpu_torch.parallel import streampar
+    seen, made = set(), []
+    taps = torch.tensor([3, -1, 2, 1], dtype=torch.int32, device=dev)
+
+    def fir_step(s, x):
+        seen.update(getattr(v, "device", torch.device("cpu")).type
+                    for v in (s, x))
+        s2 = torch.cat([s[1:], x.to(torch.int32).reshape(1)])
+        return s2, (s2 * taps).sum()
+    fir4 = ir.map_accum(fir_step, np.zeros(4, np.int32), name="fir4",
+                        memory=4)
+    items = rng.integers(-50, 50, n * 64 * 4 + 13).astype(np.int32)
+    want = run_jit(fir4, items, width=4, device=dev)
+    real_lower, real_sig = streampar.lower, streampar._carry_sig
+
+    def spy(comp, width=None, target_items=8192, device="cuda"):
+        if width == 1:
+            made.append(torch.device(device).type)
+        return real_lower(comp, width=width, target_items=target_items,
+                          device=device)
+    warm = {}
+    try:
+        streampar.lower = spy
+        for name in ("tail", "carry_signatures"):
+            if name == "carry_signatures":
+                streampar._carry_sig = lambda c: object()
+            seen.clear()
+            got, ms = host_ms(lambda: stream_parallel(fir4, items, sp,
+                                                      width=4))
+            check(np.array_equal(got, want) and seen == {"cuda"},
+                  f"mesh warm-up {name}: equal {np.array_equal(got, want)},"
+                  f" the step saw {sorted(seen)}")
+            warm[name] = {"ms": ms, "step_devices": sorted(seen)}
+    finally:
+        streampar.lower, streampar._carry_sig = real_lower, real_sig
+    check(len(made) >= 2 and set(made) == {"cuda"},
+          f"mesh warm-up: width-1 lowerings on {made}")
+    out["warm_up"] = dict(warm, items=int(items.shape[0]),
+                          lowerings=made, equal=True)
+
     # 5. the CLI's mesh flags on the card's one device
     flags = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2882,6 +2958,141 @@ def soak_phase(dev, card):
                               "equal_to_plain": True, "table": ber}},
             {"campaign": soak_launches, "windowed_ber": ber_launches},
             checks)
+
+
+def fuzz_phase(rng, dev, card):
+    """The reference's four fuzz harnesses and the last counterparts on
+    the card (the docstring's phase 17). Returns (the phase's JSON
+    object, the guarded decode's launches)."""
+    import torch
+
+    from ziria_tpu_torch.backend import chunked
+    from ziria_tpu_torch.ops import coding, crc, viterbi, \
+        viterbi_cuda as vc, viterbi_fused as vf
+    from ziria_tpu_torch.phy.wifi import rx, tx
+    from ziria_tpu_torch.phy.wifi.params import RATES
+    from ziria_tpu_torch.runtime import resilience
+    from ziria_tpu_torch.tools import fuzz
+    from ziria_tpu_torch.utils import faults, telemetry
+
+    # 1. the first FUZZ_SEEDS seeds of every family through the port's
+    # executors on the card, each held to the port's interpreter on the
+    # host (which the CPU tests hold to the reference's)
+    families = {}
+    for family in fuzz.CASES:
+        t0 = time.perf_counter()
+        chunked.reset_counts()
+        bad, executors = [], set()
+        for seed in range(FUZZ_SEEDS):
+            case = fuzz.case_of(family, seed, device=dev)
+            outs = fuzz.run_case(family, case, device=dev,
+                                 n_entries=MESH_ENTRIES)
+            executors |= set(outs)
+            bad += [f"seed {seed}: {m}"
+                    for m in fuzz.mismatches(family, outs, outs["interp"])]
+        families[family] = {
+            "cases": FUZZ_SEEDS, "mismatches": len(bad),
+            "executors": sorted(executors),
+            "graph_replays": chunked.STATS["replays"],
+            "graph_captures": chunked.STATS["captures"],
+            "eager_blocks": chunked.STATS["eager_blocks"],
+            "machine_steps": chunked.STATS["device_calls"],
+            "demoted": len(chunked.DEMOTED),
+            "s": time.perf_counter() - t0}
+        check(not bad, f"fuzz {family}: {bad[:3]}")
+    check(families["chunked"]["graph_replays"] > 0,
+          f"fuzz chunked: no chunk machine replayed a CUDA graph "
+          f"({families['chunked']})")
+
+    # 2. the hard-decision decode and the masked CRC on the card equal
+    # their CPU results
+    src = rng.integers(0, 2, (4, 400)).astype(np.uint8)
+    src[:, -6:] = 0
+    coded = coding.conv_encode(torch.from_numpy(src)).numpy()
+    coded[:, ::37] ^= 1
+    got = viterbi.viterbi_decode_bits(coded, device=dev).cpu()
+    want = viterbi.viterbi_decode_bits(coded, device="cpu")
+    check(torch.equal(got, want) and torch.equal(got[0], torch.from_numpy(
+        src[0])), "fuzz viterbi_decode_bits: card != CPU or != sent")
+    data = rng.integers(0, 256, (64, 1504)).astype(np.uint8)
+    lens = rng.integers(0, 1505, 64)
+    lens[:3] = (0, 1, 1504)
+    got = crc.crc32_bytes_masked(torch.from_numpy(data).to(dev),
+                                 torch.from_numpy(lens).to(dev)).cpu()
+    check(torch.equal(got, crc.crc32_bytes_masked(data, lens)),
+          "fuzz crc32_bytes_masked: card != CPU")
+
+    # 3. the static decode of a 1000-byte 54 Mbit/s frame against
+    # rx.receive's PSDU for the same frame
+    rate = RATES[54]
+    psdu = rng.integers(0, 256, PSDU_BYTES).astype(np.uint8)
+    frame = tx.encode_frame(psdu, 54, device=dev)
+    n_sym = (frame.shape[0] - rx.FRAME_DATA_START) // 80
+    pad = torch.zeros((200, 2), dtype=frame.dtype, device=dev)
+    res = rx.receive(torch.cat([pad, frame, pad]).cpu().numpy(), device=dev)
+    (bits, service), static_ms = cuda_timed(
+        lambda: rx.decode_data_static(frame, rate, n_sym, 8 * PSDU_BYTES,
+                                      device=dev))
+    sent = np.unpackbits(psdu, bitorder="little")
+    check(res.ok and np.array_equal(res.psdu_bits, bits.cpu().numpy())
+          and np.array_equal(res.psdu_bits, sent)
+          and service.shape == (16,),
+          "fuzz decode_data_static: != rx.receive's PSDU or != sent")
+
+    # 4. guarded(fallback=) around one kernel decode: the kernel's bits
+    # with one ACS and one traceback launch; under a fatal plan the
+    # fallback's value, no launch, one fallback counted
+    llr = torch.from_numpy(rng.normal(size=(16, 4096, 2))
+                           .astype(np.float32)).to(dev)
+
+    def decode():
+        return vc.viterbi_decode_batch_windowed(llr, window=1024)
+
+    def twin():
+        return viterbi.viterbi_decode(llr[:1], n_bits=64)
+    kernel_bits = decode()
+    guarded, fell = {}, {}
+    for name, specs in (("no_plan", ()),
+                        ("fatal", (faults.FaultSpec("fuzz.decode", "fatal",
+                                                    every=1),))):
+        torch.cuda.synchronize()
+        vc.reset_launches()
+        vf.reset_launches()
+        with telemetry.collect() as reg, faults.inject(*specs):
+            out = resilience.guarded("fuzz.decode", decode, fallback=twin)
+        torch.cuda.synchronize()
+        guarded[name] = {k: v for k, v in {**vc.LAUNCHES,
+                                          **vf.LAUNCHES}.items() if v}
+        fell[name] = reg.snapshot().get("resilience.fallbacks", 0)
+        if name == "no_plan":
+            check(torch.equal(out, kernel_bits) and guarded[name] ==
+                  {"acs": 1, "traceback": 1} and fell[name] == 0,
+                  f"fuzz guarded: {guarded[name]}, fallbacks {fell[name]}")
+        else:
+            check(torch.equal(out, twin()) and not guarded[name]
+                  and fell[name] == 1,
+                  f"fuzz guarded fatal: {guarded[name]}, fallbacks "
+                  f"{fell[name]}")
+
+    # 5. a disabled chaos seam costs under the canary's 5 us a call
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            faults.maybe_fail("x")
+        best = min(best, (time.perf_counter() - t0) / 20000)
+    check(best < 5e-6, f"fuzz: a disabled seam costs {best:.2e} s a call")
+    launches = {"guarded": {k: guarded["no_plan"].get(k, 0)
+                            for k in KERNELS}}
+    return {"phase": "fuzz", "card": card, "seeds": FUZZ_SEEDS,
+            "mesh_entries": MESH_ENTRIES, "families": families,
+            "cases": sum(f["cases"] for f in families.values()),
+            "mismatches": sum(f["mismatches"] for f in families.values()),
+            "static_decode": {"rate_mbps": 54, "psdu_bytes": PSDU_BYTES,
+                              "n_sym": int(n_sym), "ms": static_ms,
+                              "equal_to_receive": True},
+            "guarded": {"launches": guarded, "fallbacks": fell},
+            "disabled_seam_ns": best * 1e9}, launches
 
 
 def run_zir(src, infile, mode, backend, outfile, platform, extra=()):
@@ -3604,7 +3815,14 @@ def main(argv=None) -> int:
     check(soak_s <= SOAK_BUDGET_S,
           f"soak: {soak_s:.1f} s, over its {SOAK_BUDGET_S} s budget")
 
-    # ---- 17. timing
+    # ---- 17. the reference's fuzz harnesses, the last counterparts
+    fuzz_line, fuzz_launches = fuzz_phase(rng, dev, card)
+    fuzz_s = time.perf_counter() - t_ph
+    t_ph = emit_timed(dict(fuzz_line, budget_s=FUZZ_BUDGET_S), t_ph)
+    check(fuzz_s <= FUZZ_BUDGET_S,
+          f"fuzz: {fuzz_s:.1f} s, over its {FUZZ_BUDGET_S} s budget")
+
+    # ---- 18. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -3912,6 +4130,8 @@ def main(argv=None) -> int:
                               for sn, sl in soak_launches.items()},
             "soak_shapes": ({"soak_warm": soak_checks[name]}
                             if name in soak_checks else {}),
+            "fuzz_launches": {fn: fl.get(name, 0)
+                              for fn, fl in fuzz_launches.items()},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

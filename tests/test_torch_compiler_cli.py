@@ -25,7 +25,8 @@ from ziria_tpu_torch.runtime.buffers import StreamSpec, read_stream, \
     write_stream
 
 # a firing whose while loop runs a data-dependent number of times: no
-# vmapped step can run it, so the jit backend refuses it
+# vmapped step can run it, so the jit backend runs its firings one at a
+# time (the reference stages the loop as lax.while_loop)
 DYNAMIC = """
 let comp main = read[int32] >>> repeat {
   x <- take;
@@ -35,6 +36,15 @@ let comp main = read[int32] >>> repeat {
     while (i < x) { acc := acc + i; i := i + 1 }
   };
   emit acc
+} >>> write[int32]
+"""
+
+# stream control (a while loop that takes): no static steady state,
+# which the jit backend refuses, as the reference's does
+STREAMING = """
+let comp main = read[int32] >>> {
+  var s : int32 := 0;
+  while (s < 100) { x <- take; do { s := s + x }; emit s }
 } >>> write[int32]
 """
 
@@ -186,14 +196,22 @@ def test_without_a_card_the_driver_raises(tmp_path, monkeypatch):
 
 def test_unlowerable_program_falls_back_to_hybrid(tmp_path, capsys):
     xs = np.array([0, 3, 7, 1, 5], np.int32)
-    src, inf, outf = _files(tmp_path, DYNAMIC, xs)
+    src, inf, outf = _files(tmp_path, STREAMING, xs)
     assert cli.main(_argv(src, inf, outf, "--platform=cpu",
                           "--backend=jit", "--stats")) == 0
     err = capsys.readouterr().err
     assert "falling back to --backend=hybrid" in err
-    assert "data-dependent control flow" in err
+    assert "no static steady state" in err
     assert "run: backend=hybrid" in err
     assert cli.LAST_RUN["backend"] == "hybrid"
+    got = read_stream(StreamSpec(ty="int32", path=outf, mode="dbg"))
+    np.testing.assert_array_equal(got, np.cumsum(xs))
+    # a firing with data-dependent control lowers, one firing at a time
+    src, inf, outf = _files(tmp_path, DYNAMIC, xs)
+    assert cli.main(_argv(src, inf, outf, "--platform=cpu",
+                          "--backend=jit")) == 0
+    assert "falling back" not in capsys.readouterr().err
+    assert cli.LAST_RUN["backend"] == "jit"
     got = read_stream(StreamSpec(ty="int32", path=outf, mode="dbg"))
     np.testing.assert_array_equal(got, [x * (x - 1) // 2 for x in xs])
     # a lowerable program stays on jit, and --ddump-hybrid dumps a plan

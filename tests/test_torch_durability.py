@@ -422,3 +422,84 @@ def test_guarded_policy_and_watchdog_equal_reference():
     assert isinstance(e.value.last, resilience.InjectedTimeout)
     assert isinstance(e.value.last, faults.InjectedFault)
     assert calls == [2]
+
+
+def test_guarded_fallback_equals_reference():
+    """The degraded-twin hook, on the reference test's scenarios: a
+    fatal fault takes the fallback at once, exhausted transients take
+    it after the retries, a clean call never takes it; return values,
+    fired faults, backoff delays and counters equal in both packages."""
+    from ziria_tpu.utils import telemetry as jtm
+    got = []
+    for res, fm, tm in ((resilience, faults, telemetry),
+                        (jres, jfaults, jtm)):
+        slept, out = [], []
+        pol = res.FaultPolicy(max_retries=2, backoff_base_s=1e-4)
+        with tm.collect() as reg, fm.inject(
+                fm.FaultSpec("s2", "fatal", every=1),
+                fm.FaultSpec("s3", "transient", every=1)) as p:
+            for site in ("s2", "s3", "s5"):
+                out.append(res.guarded(site, lambda: "fine", policy=pol,
+                                       fallback=lambda: "twin",
+                                       _sleep=slept.append))
+        got.append((out, list(p.fired), slept,
+                    {key: m.value for key, m in reg.metrics()
+                     if type(m).__name__ == "CounterMetric"}))
+    assert got[0] == got[1]
+    out, _fired, slept, counters = got[0]
+    assert out == ["twin", "twin", "fine"] and len(slept) == 2
+    assert [v for k, v in counters.items()
+            if "resilience.fallbacks" in str(k)] == [2]
+
+
+def test_classify_error_equals_reference():
+    """Every status marker, a plain error, both injected classes and a
+    TimeoutError classify alike in both packages."""
+    assert resilience.TRANSIENT_MARKERS == jres.TRANSIENT_MARKERS
+    cases = [(RuntimeError(f"{m}: from the device"),) * 2
+             for m in resilience.TRANSIENT_MARKERS]
+    cases += [(ValueError("INVALID_ARGUMENT: shape"),) * 2,
+              (faults.InjectedTransientError("t"),
+               jfaults.InjectedTransientError("t")),
+              (faults.InjectedFatalError("UNAVAILABLE but fatal"),
+               jfaults.InjectedFatalError("UNAVAILABLE but fatal")),
+              (TimeoutError("slow"),) * 2]
+    got = [(resilience.classify_error(a), jres.classify_error(b))
+           for a, b in cases]
+    assert all(x == y for x, y in got), got
+    assert [x for x, _y in got[-4:]] == ["fatal", "transient", "fatal",
+                                         "transient"]
+
+
+def test_disabled_seam_costs_under_the_canary_bound():
+    """With no plan, faults.maybe_fail is under the reference canary's
+    5 us a call (tools/chaos_smoke.py): the best of 5 runs of 20,000
+    calls, so a loaded host does not decide it."""
+    import time
+    assert not faults.active()
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            faults.maybe_fail("x")
+        best = min(best, (time.perf_counter() - t0) / 20000)
+    assert best < 5e-6, f"disabled maybe_fail: {best:.2e} s a call"
+
+
+def test_geometry_frozen_and_hashable():
+    """Geometry is a dict key and part of cache keys: equal geometries
+    hash equal, a field write raises, as tools/geometry_smoke.py pins."""
+    import dataclasses
+
+    from ziria_tpu.utils.geometry import Geometry as JGeometry
+    from ziria_tpu_torch.utils.geometry import Geometry
+    g = Geometry()
+    assert hash(g) == hash(Geometry()) and {g: 1}[Geometry()] == 1
+    wide = Geometry(chunk_len=16384, frame_len=4096)
+    assert wide == Geometry(chunk_len=16384, frame_len=4096) != g
+    assert hash(wide) == hash(Geometry(chunk_len=16384, frame_len=4096))
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        g.chunk_len = 1
+    assert dataclasses.is_dataclass(g) and \
+        g.__dataclass_params__.frozen == \
+        JGeometry().__dataclass_params__.frozen

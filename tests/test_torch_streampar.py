@@ -167,6 +167,43 @@ def test_memory_warm_ups(monkeypatch):
           (np.arange(8 * 13, dtype=np.int32) * 7) % 53)
 
 
+def test_warm_up_on_the_entry_device(monkeypatch):
+    """The warm-up of `carry_at`: a 4-tap FIR at a length that leaves a
+    tail after the bulk (the tail's carry warmed from the stream), then
+    with the two lowerings' carry signatures made to differ (every
+    shard warmed through `carry_at`, single and batched); each equal to
+    run_jit and the reference exactly, and every width-1 warm-up
+    lowering made on the device `carry_at` was given."""
+    made = []
+    real = sp.lower
+
+    def spy(comp, width=None, target_items=8192, device="cuda"):
+        if width == 1:
+            made.append(device)
+        return real(comp, width=width, target_items=target_items,
+                    device=device)
+    monkeypatch.setattr(sp, "lower", spy)
+    taps = np.array([3, -1, 2, 1], np.int32)
+    rng = np.random.default_rng(31)
+    xs = rng.integers(-50, 50, 8 * 64 + 13).astype(np.int32)
+    check(lambda d, t: fir(d, t, 4, taps), xs, width=4)
+    n_tail = len(made)
+    assert n_tail >= 1
+    monkeypatch.setattr(sp, "_carry_sig", lambda c: object())
+    check(lambda d, t: fir(d, t, 4, taps), xs, width=4)
+    assert len(made) > n_tail
+    comp, _jcomp = both(lambda d, t: fir(d, t, 4, taps))
+    batch = rng.integers(-50, 50, (4, 4 * 32 + 9)).astype(np.int32)
+    got = sp.stream_parallel_batched(comp, batch,
+                                     cpu_mesh(2, 4, names=("dp", "sp")),
+                                     width=4)
+    for f in range(batch.shape[0]):
+        np.testing.assert_array_equal(
+            got[f], run_jit(comp, batch[f], width=4, device="cpu"))
+    assert all(isinstance(d, torch.device) and d.type == "cpu"
+               for d in made), made
+
+
 def test_batched_dp_x_sp():
     """A batch over (dp 2, sp 4): stateless + advance, a memory stage
     seeded from each frame's own items (warmed on the entries), ragged

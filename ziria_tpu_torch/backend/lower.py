@@ -24,10 +24,14 @@ step processes. Per stage:
   interpreter* on tensors — the oracle and the compiler share one
   semantics, so they cannot drift.
 
-A firing body whose control depends on its data (a ``while``, a loop
-bound or a value branch that differs per firing under vmap) cannot run
-as one vmapped call: that is a ``LowerError`` with the reference's
-guidance, and the CLI then runs the program on the hybrid backend.
+A firing body whose own control depends on its data (a ``while``
+condition or a loop bound that differs per firing, which the reference
+stages as ``lax.while_loop``/``fori_loop`` under vmap) cannot run as
+one vmapped call: its stage runs each firing on its own, in order, on
+the device, as the stateful stages do. A Python callable that branches
+on a batched value refuses with a ``LowerError`` and the reference's
+guidance, as the reference's tracer does, and the CLI then runs the
+program on the hybrid backend.
 """
 
 from __future__ import annotations
@@ -76,8 +80,10 @@ def firing_fn(body: ir.Comp) -> Tuple[Callable, int, int]:
 
     in_items has shape (take, *item); out_items (emit, *item_out) — for
     take/emit == 1 the bare item is used. The body is executed by the
-    streaming interpreter with tensor values; control that differs per
-    firing under vmap raises ``LowerError`` with guidance.
+    streaming interpreter with tensor values; under vmap, control in
+    its code that differs per firing raises ``DeviceControlError``
+    (:func:`_apply_parallel` then runs it per firing), control in a
+    Python callable ``LowerError`` with guidance.
     """
     c = cardinality(body)
     if not isinstance(c, CCard):
@@ -110,9 +116,8 @@ def firing_fn(body: ir.Comp) -> Tuple[Callable, int, int]:
                 outs.append(next(gen))
         except StopIteration:
             pass
-        except E.DeviceControlError as e:
-            raise LowerError(f"body {body.label()} {_DATA_DEPENDENT} "
-                             f"({e})") from e
+        except E.DeviceControlError:
+            raise
         except RuntimeError as e:
             if _is_vmap_control(e):
                 raise LowerError(
@@ -136,21 +141,30 @@ def firing_fn(body: ir.Comp) -> Tuple[Callable, int, int]:
 
 def _apply_parallel(f: Callable, chunk, a: int, b: int, F: int):
     """Apply stateless per-firing f over F firings packed in `chunk`
-    ((F*a, *item) -> (F*b, *item_out)) via reshape + torch.func.vmap."""
+    ((F*a, *item) -> (F*b, *item_out)) via reshape + torch.func.vmap.
+    When f's own code branches per firing (``DeviceControlError``: a
+    ``while`` condition or a loop bound, which the reference stages as
+    ``lax.while_loop``/``fori_loop`` under vmap) the F firings run one
+    eager call each, in order, as :func:`_apply_scan` runs a stateful
+    stage's."""
     xs = chunk if a == 1 else chunk.reshape((F, a) + tuple(chunk.shape[1:]))
 
     def one(x):
         try:
             return txp.asarray(f(x))
-        except E.DeviceControlError as e:
-            raise LowerError(f"{_DATA_DEPENDENT} ({e})") from e
+        except E.DeviceControlError:
+            raise
         except RuntimeError as e:
             if _is_vmap_control(e):
                 raise LowerError(_DATA_DEPENDENT) from e
             raise
 
-    with E.device_mode("vmap", xs.device):
-        ys = torch.func.vmap(one)(xs)
+    try:
+        with E.device_mode("vmap", xs.device):
+            ys = torch.func.vmap(one)(xs)
+    except E.DeviceControlError:
+        with E.device_mode("block", xs.device):
+            ys = txp.stack([txp.asarray(f(xs[k])) for k in range(F)])
     return ys if b == 1 else ys.reshape((F * b,) + tuple(ys.shape[2:]))
 
 

@@ -36,7 +36,10 @@ MAX_TABLE_ITEMS = 1 << 22  # refuse absurd tables (16 MB of f32)
 
 def build_table(m: ir.Map):
     """Evaluate m.f over its whole declared domain in one batched
-    evaluation, on the CPU: (domain, *out_item)."""
+    evaluation, on the CPU: (domain, *out_item). A function whose own
+    control differs per input (a ``while`` condition or a loop bound,
+    which the reference stages under its vmap) is evaluated one input
+    at a time instead."""
     from ziria_tpu_torch.frontend import eval as E
     from ziria_tpu_torch.utils import txp
 
@@ -55,9 +58,13 @@ def build_table(m: ir.Map):
             f"map {m.label()}: domain {dom} exceeds the "
             f"{MAX_TABLE_ITEMS}-item cap; narrow the domain")
     cpu = torch.device("cpu")
-    with E.device_mode("vmap", cpu), torch.no_grad():
-        table = torch.func.vmap(lambda i: txp.asarray(m.f(i)))(
-            torch.arange(dom, dtype=torch.int32))
+    dom_t = torch.arange(dom, dtype=torch.int32)
+    try:
+        with E.device_mode("vmap", cpu), torch.no_grad():
+            table = torch.func.vmap(lambda i: txp.asarray(m.f(i)))(dom_t)
+    except E.DeviceControlError:
+        with E.device_mode("block", cpu), torch.no_grad():
+            table = txp.stack([txp.asarray(m.f(i)) for i in dom_t])
     if table.numel() > MAX_TABLE_ITEMS:
         raise LutError(
             f"map {m.label()}: table of {table.numel()} items exceeds the "

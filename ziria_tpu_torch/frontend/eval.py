@@ -16,7 +16,8 @@ condition on a device tensor syncs with ``bool()`` (the interpreter's
 exact semantics, counted too), except under vmap, where a batched
 condition takes the where-merge ``_staged_if`` as the reference's
 traced one does, and a batched ``while`` or loop bound raises
-``DeviceControlError`` (backend/lower.py turns it into ``LowerError``).
+``DeviceControlError`` (backend/lower.py then runs the firings one at
+a time).
 
 Value representation / dtype policy:
 
@@ -74,7 +75,7 @@ class NotStatic(Exception):
 class DeviceControlError(ZiriaRuntimeError):
     """Data-dependent control on a batched value under ``vmap``: a
     ``while`` condition, a loop bound or a sync that differs per
-    firing. backend/lower.py turns it into ``LowerError``."""
+    firing. backend/lower.py runs such a stage one firing at a time."""
 
 
 def _rt_err(loc: Tuple[int, int], msg: str) -> ZiriaRuntimeError:

@@ -35,6 +35,22 @@ def exact_fp32():
         torch.backends.cudnn.allow_tf32 = cd
 
 
+def cpack(re, im):
+    return torch.stack([re, im], dim=-1)
+
+
+def cre(p):
+    return p[..., 0]
+
+
+def cim(p):
+    return p[..., 1]
+
+
+def conj(p):
+    return torch.stack([p[..., 0], -p[..., 1]], dim=-1)
+
+
 def cmul(a, b):
     """Elementwise complex multiply of pair tensors."""
     ar, ai = a[..., 0], a[..., 1]
@@ -47,6 +63,12 @@ def cmul_conj(a, b):
     ar, ai = a[..., 0], a[..., 1]
     br, bi = b[..., 0], b[..., 1]
     return torch.stack([ar * br + ai * bi, ai * br - ar * bi], dim=-1)
+
+
+def cscale(p, s):
+    """Pairs scaled by real factors `s` (broadcast over the pair
+    axis)."""
+    return p * torch.as_tensor(s, dtype=p.dtype, device=p.device)[..., None]
 
 
 def cabs2(p):
@@ -104,10 +126,15 @@ def _dft_mats_t(n: int, inverse: bool, device: torch.device):
 DFT_BLOCK_ROWS = {"cpu": 64, "cuda": 16384}
 
 
-def dft_pair(p, inverse: bool = False):
-    """DFT along the axis right before the re/im axis of a pair tensor.
+def dft_pair(p, inverse: bool = False, axis: int = -2):
+    """DFT along `axis` of a pair tensor (an axis of the whole tensor,
+    as in the reference; default the one right before the re/im axis).
     numpy-fft convention: forward unscaled, inverse scaled by 1/n. A
-    row's values do not depend on the batch (:data:`DFT_BLOCK_ROWS`)."""
+    row's values do not depend on the batch (:data:`DFT_BLOCK_ROWS`):
+    another axis is moved before the re/im axis and back around the
+    same fixed row blocks."""
+    if axis != -2:
+        return dft_pair(torch.movedim(p, axis, -2), inverse).movedim(-2, axis)
     n = p.shape[-2]
     ct, st = _dft_mats_t(n, inverse, p.device)
     x = p.reshape(-1, n, 2)
@@ -126,15 +153,23 @@ def dft_pair(p, inverse: bool = False):
     return torch.stack([yr[:m], yi[:m]], dim=-1).reshape(p.shape)
 
 
-def fft_pair(p):
-    return dft_pair(p, inverse=False)
+def fft_pair(p, axis: int = -2):
+    return dft_pair(p, inverse=False, axis=axis)
 
 
-def ifft_pair(p):
-    return dft_pair(p, inverse=True)
+def ifft_pair(p, axis: int = -2):
+    return dft_pair(p, inverse=True, axis=axis)
 
 
 def from_complex(c) -> np.ndarray:
     """complex numpy array -> float32 pair array (host constants)."""
     c = np.asarray(c)
     return np.stack([c.real, c.imag], axis=-1).astype(np.float32)
+
+
+def to_complex(p):
+    """Pair tensor (or array) -> complex64 tensor (or numpy array)."""
+    if isinstance(p, torch.Tensor):
+        return torch.complex(p[..., 0].float(), p[..., 1].float())
+    p = np.asarray(p)
+    return (p[..., 0] + 1j * p[..., 1]).astype(np.complex64)

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ziria_tpu_torch.ops import cplx
-from ziria_tpu_torch.utils.bits import bits_to_bytes, bytes_to_bits
+from ziria_tpu_torch.utils.bits import bits_to_bytes, bits_to_uint, \
+    bytes_to_bits
 from ziria_tpu_torch.utils.dispatch import pow2_ceil
 
 _POLY = 0xEDB88320  # 0x04C11DB7 bit-reflected (LSB-first algorithm)
@@ -109,6 +110,31 @@ def _crc_bits(data: torch.Tensor, n_bytes: torch.Tensor) -> torch.Tensor:
         lin = bytes_to_bits(aligned).to(torch.float32) @ c
     lin = (lin.to(torch.int64) & 1).to(torch.uint8)
     return lin ^ init[n_bytes] ^ 1
+
+
+def crc32_bytes(data) -> torch.Tensor:
+    """CRC-32 of a uint8 byte array (n,) (a tensor, on its device, or
+    array-like): the register as a 0-d int64 tensor (the reference's
+    uint32 scalar)."""
+    data = torch.as_tensor(data, dtype=torch.uint8)
+    n = torch.full((1,), data.shape[0], dtype=torch.int64,
+                   device=data.device)
+    return bits_to_uint(_crc_bits(data[None], n))[0]
+
+
+def crc32_bytes_masked(data, n_bytes) -> torch.Tensor:
+    """CRC-32 of the first ``n_bytes`` of padded uint8 byte rows: data
+    (B, M) with n_bytes (B,), or one row (M,) with a scalar, each lane
+    at its own true length (clamped into [0, M]) in one fixed-shape
+    pass -> int64 registers (B,) (or 0-d). Equal to :func:`crc32_bytes`
+    of each unpadded prefix, as the reference's masked scan."""
+    data = torch.as_tensor(data, dtype=torch.uint8)
+    one = data.dim() == 1
+    rows = data[None] if one else data
+    n = torch.as_tensor(n_bytes, dtype=torch.int64, device=rows.device)
+    n = n.reshape(-1).expand(rows.shape[0]).clamp(0, rows.shape[1])
+    crc = bits_to_uint(_crc_bits(rows, n))
+    return crc[0] if one else crc
 
 
 def crc32_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,15 @@ _SEQ_TABLE = np.stack([np_lfsr_sequence_127(_seed_bits(s))
                        for s in range(128)])
 
 
+def lfsr_sequence_127(seed_bits, device="cuda") -> torch.Tensor:
+    """One period (127,) uint8 of the scrambler sequence from a 7-bit
+    seed (seed_bits[k] = x_{k+1}) as a tensor on `device`: the seed's
+    row of the per-seed table, equal to :func:`np_lfsr_sequence_127`."""
+    bits = torch.as_tensor(seed_bits, device=device).to(torch.int64)
+    seed = (bits << torch.arange(7, device=bits.device)).sum()
+    return torch.from_numpy(_SEQ_TABLE).to(bits.device)[seed]
+
+
 def _tiled(seq: torch.Tensor, n: int) -> torch.Tensor:
     reps = -(-n // 127)
     return seq.repeat((1,) * (seq.dim() - 1) + (reps,))[..., :n]

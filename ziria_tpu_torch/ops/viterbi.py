@@ -172,3 +172,16 @@ def viterbi_decode(llrs: torch.Tensor, n_bits: int = None,
         return viterbi_decode_int8(quantize_llrs(x, INT8_QUANT_MAX)[0],
                                    n_bits)
     return _scan(x.to(torch.float32), n_bits)
+
+
+def viterbi_decode_bits(coded_bits, n_bits: int = None, device="cuda"):
+    """Hard-decision convenience: 0/1 coded bits (2T,), or a batch
+    (B, 2T), -> decoded bits (T,) or (B, T) uint8 (the first `n_bits`
+    with `n_bits`): the scan decoder of ``2b - 1`` on `device`, as the
+    reference's ``viterbi_decode_bits``."""
+    b = torch.as_tensor(coded_bits, device=device)
+    x = 2.0 * b.to(torch.float32) - 1.0
+    if x.dim() == 1:
+        return viterbi_decode(x[None], n_bits)[0]
+    return viterbi_decode(x, n_bits)
+

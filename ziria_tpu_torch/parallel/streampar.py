@@ -180,10 +180,11 @@ def _fast_forward_carry(stages, big, advances, n_iters: int, device):
 
 def _entry_carry_fn(comp, big, stages, advances, warm_iters: int):
     """carry_at(iters_done, items, device): the fast-forward plus, when
-    a stage has finite memory, a warm-up scan on the host's side over
-    the `items` just before the shard (`items`: the stream the shard
-    belongs to)."""
-    small = lower(comp, width=1, device="cpu") if warm_iters else None
+    a stage has finite memory, a warm-up scan over the `items` just
+    before the shard (`items`: the stream the shard belongs to), its
+    width-1 lowering made on `device` (once per device), as the
+    reference lowers it on its default device."""
+    smalls = {}
 
     def carry_at(iters_done: int, items, device):
         warm = min(warm_iters, iters_done)
@@ -191,6 +192,10 @@ def _entry_carry_fn(comp, big, stages, advances, warm_iters: int):
                                    device)
         if not warm:
             return base
+        device = torch.device(device)
+        small = smalls.get(device)
+        if small is None:
+            small = smalls[device] = lower(comp, width=1, device=device)
         t1 = big.ss.take
         seg = items[(iters_done - warm) * t1: iters_done * t1]
         chunks = E._t(seg.reshape((warm, small.take) + items.shape[1:]),
@@ -219,8 +224,9 @@ def _run_shards(comp, big, plan, items, per: int, devs, carry_at):
     the entries `devs`, each shard from its reconstructed entry carry.
     Memory warm-ups run on the entries: each gathers its warm window
     from its left neighbours and steps a width-1 lowering over it,
-    unless the two lowerings' carries differ in shape (then the host's
-    warm-up, which is right in any case). Returns the outputs (numpy)."""
+    unless the two lowerings' carries differ in shape (then `carry_at`,
+    which copies each warm window from the host's stream to its entry
+    and is right in any case). Returns the outputs (numpy)."""
     stages, advances, warm_iters = plan
     n_dev = len(devs)
     steps = per // big.width

@@ -188,6 +188,24 @@ def _decode_back(bits, n_psdu_bits: int):
             clear[:, :N_SERVICE_BITS])
 
 
+def decode_data_static(frame, rate: RateParams, n_sym: int,
+                       n_psdu_bits: int, sco_track: bool = False,
+                       device="cuda"):
+    """DATA decode of ONE aligned, CFO-corrected frame
+    (>=400+80*n_sym, 2) at a known rate and symbol count -> (psdu bits
+    (n_psdu_bits,), descrambled service bits (16,)): the reference's
+    flagship composition, :func:`_decode_front`, the scan decoder
+    (ops/viterbi, no kernel, as the reference's ``lax.scan``) and
+    :func:`_decode_back`, on `device`."""
+    frame = torch.as_tensor(frame, dtype=torch.float32,
+                            device=check_device(device, "decode_data_static"))
+    with cplx.exact_fp32():
+        dep = _decode_front(frame[None], rate, n_sym, sco_track)
+        bits = viterbi.viterbi_decode(dep, n_bits=n_sym * rate.n_dbps)
+        psdu, service = _decode_back(bits, n_psdu_bits)
+    return psdu[0], service[0]
+
+
 def decode_data_batch(frames, rate: RateParams, n_sym: int,
                       n_psdu_bits: int, viterbi_window: int = None,
                       viterbi_metric: str = None, viterbi_radix: int = None,

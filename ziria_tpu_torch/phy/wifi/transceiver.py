@@ -30,6 +30,7 @@ import torch
 
 from ziria_tpu_torch.ops.crc import append_crc32, check_crc32
 from ziria_tpu_torch.phy.wifi import rx, tx
+from ziria_tpu_torch.utils.bits import np_bits_to_bytes, np_bytes_to_bits
 
 # MAC-lite frame types (first header byte)
 TYPE_DATA = 0x08
@@ -43,15 +44,6 @@ ACK_RATE_MBPS = 6      # control frames go at the base rate
 ACK_TIMEOUT = 8192     # samples the sender waits before retransmitting
 
 
-def _bytes_to_bits(b: np.ndarray) -> np.ndarray:
-    """Bytes -> bits, LSB first per byte (uint8)."""
-    return np.unpackbits(np.asarray(b, np.uint8), bitorder="little")
-
-
-def _bits_to_bytes(bits: np.ndarray) -> np.ndarray:
-    return np.packbits(np.asarray(bits, np.uint8), bitorder="little")
-
-
 def mac_frame_psdu(ftype: int, seq: int, dst: int, src: int,
                    payload: bytes = b"") -> np.ndarray:
     """Build the PSDU bytes: header + payload + CRC32 FCS (host
@@ -59,8 +51,8 @@ def mac_frame_psdu(ftype: int, seq: int, dst: int, src: int,
     hdr = np.array([ftype & 0xFF, seq & 0xFF, dst & 0xFF, src & 0xFF],
                    np.uint8)
     body = np.concatenate([hdr, np.frombuffer(payload, np.uint8)])
-    bits = append_crc32(torch.from_numpy(_bytes_to_bits(body)))
-    return _bits_to_bytes(bits.numpy())
+    bits = append_crc32(torch.from_numpy(np_bytes_to_bits(body)))
+    return np_bits_to_bytes(bits.numpy())
 
 
 @dataclass
@@ -76,7 +68,7 @@ class MacFrame:
         b = np.asarray(psdu_bytes, np.uint8)
         if b.size < HDR_BYTES + FCS_BYTES:
             return None
-        if not bool(check_crc32(torch.from_numpy(_bytes_to_bits(b)))):
+        if not bool(check_crc32(torch.from_numpy(np_bytes_to_bits(b)))):
             return None
         return MacFrame(int(b[0]), int(b[1]), int(b[2]), int(b[3]),
                         bytes(b[HDR_BYTES:-FCS_BYTES].tobytes()))
@@ -164,7 +156,7 @@ class Station:
                          device=self.device)
         if not res.ok:
             return None
-        fr = MacFrame.parse(_bits_to_bytes(res.psdu_bits))
+        fr = MacFrame.parse(np_bits_to_bytes(res.psdu_bits))
         if fr is None or fr.dst != self.addr:
             return None
         if fr.ftype == TYPE_ACK:

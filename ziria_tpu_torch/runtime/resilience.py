@@ -2,7 +2,7 @@
 (counterpart of ziria_tpu/runtime/resilience.py: ``FaultPolicy``,
 ``env_max_retries``, ``default_policy`` :123, ``classify_error``,
 ``backoff_delay``, the watchdog of ``_call_with_watchdog`` :183,
-``guarded`` :215 without its ``fallback``, ``checkpoint_carry`` :306,
+``guarded`` :215, ``checkpoint_carry`` :306,
 ``restore_carry`` :340, ``save_checkpoint`` :383 and
 ``load_checkpoint`` :407).
 
@@ -10,8 +10,9 @@
 (``faults.maybe_fail``) inside ``dispatch.timed``; transient failures
 retry with exponential backoff and jitter hashed from (label, seed,
 attempt); a fatal failure, or exhausted retries, raises
-:class:`DispatchFailed`. A real CUDA fault is sticky (it poisons the
-context), so on the card a retry cannot heal it: there the receivers
+:class:`DispatchFailed`, or returns the caller's ``fallback()``. A
+real CUDA fault is sticky (it poisons the context), so on the card a
+retry cannot heal it: there the receivers
 degrade only for an injected fault and re-raise any other (see
 ``framebatch._contained``).
 
@@ -150,9 +151,15 @@ def _count(name: str, n: int = 1) -> None:
 
 
 def guarded(label: str, fn: Callable, *args,
-            policy: Optional[FaultPolicy] = None) -> Any:
+            policy: Optional[FaultPolicy] = None,
+            fallback: Optional[Callable[[], Any]] = None,
+            _sleep: Callable[[float], None] = time.sleep) -> Any:
     """``fn(*args)`` as a guarded dispatch at site ``label`` (see the
-    module docstring)."""
+    module docstring). A fatal failure, or exhausted retries, returns
+    ``fallback()`` when it is given (the caller's degraded twin,
+    counted as ``resilience.fallbacks``) instead of raising; ``guarded``
+    never swaps anything in by itself. ``_sleep`` takes each backoff
+    delay."""
     policy = policy if policy is not None else default_policy()
     last: Optional[BaseException] = None
     kind = "fatal"
@@ -175,10 +182,13 @@ def guarded(label: str, fn: Callable, *args,
                 d = backoff_delay(label, attempt, policy)
                 _count("resilience.retries")
                 telemetry.observe("resilience.backoff_seconds", d)
-                time.sleep(d)
+                _sleep(d)
                 continue
             break
     _count("resilience.fatal")
+    if fallback is not None:
+        _count("resilience.fallbacks")
+        return fallback()
     raise DispatchFailed(label, attempt + 1, kind, last) from last
 
 

@@ -7,7 +7,10 @@ arithmetic; every value here fits in 32 bits).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+BIT_DTYPE = torch.uint8
 
 
 def bytes_to_bits(data: torch.Tensor) -> torch.Tensor:
@@ -46,3 +49,19 @@ def uint_to_bits(vals, k: int, msb_first: bool = False,
     if msb_first:
         idx = idx.flip(0)
     return ((vals[..., None] >> idx) & 1).to(torch.uint8)
+
+
+def np_bytes_to_bits(data) -> np.ndarray:
+    """uint8 bytes (..., N) -> numpy bits (..., 8N) on the host,
+    LSB-first per byte."""
+    return np.unpackbits(np.asarray(data, np.uint8), axis=-1,
+                         bitorder="little")
+
+
+def np_bits_to_bytes(bits) -> np.ndarray:
+    """numpy bits (..., 8N) -> uint8 bytes (..., N) on the host,
+    LSB-first per byte."""
+    bits = np.asarray(bits, np.uint8)
+    if bits.shape[-1] % 8:
+        raise ValueError(f"bit count {bits.shape[-1]} not a multiple of 8")
+    return np.packbits(bits, axis=-1, bitorder="little")

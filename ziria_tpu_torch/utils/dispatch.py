@@ -77,6 +77,14 @@ class DispatchCount:
     def total(self) -> int:
         return sum(self.counts.values())
 
+    @property
+    def total_time(self) -> float:
+        return float(sum(self.times.values()))
+
+    def times_ms(self) -> Dict[str, float]:
+        """Per-site wall time in milliseconds, rounded for reports."""
+        return {k: round(v * 1e3, 3) for k, v in sorted(self.times.items())}
+
 
 def record(label: str = "dispatch", n: int = 1,
            seconds: Optional[float] = None) -> None:

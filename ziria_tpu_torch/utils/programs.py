@@ -179,11 +179,13 @@ def _sig(args: Tuple, kwargs: Dict) -> str:
 
 @dataclass
 class ProgramNote:
-    """A call a site reported: its callable and argument skeleton."""
+    """A call a site reported: its callable and argument skeletons
+    (each tensor as its shape, dtype and device: the port's abstract
+    values)."""
     label: str
     fn: Any
-    args: Tuple
-    kwargs: Dict[str, Any]
+    avals: Tuple
+    kwavals: Dict[str, Any]
     calls: int = 0
 
 
@@ -336,13 +338,13 @@ class Observatory:
         self.notes: Dict[Tuple[str, str], ProgramNote] = {}
         self.profiles: Dict[str, Dict[str, Any]] = {}
 
-    def _note(self, label: str, fn: Any, args: Tuple,
-              kwargs: Dict[str, Any]) -> None:
-        key = (label, _sig(args, kwargs))
+    def _note(self, label: str, fn: Any, avals: Tuple,
+              kwavals: Dict[str, Any]) -> None:
+        key = (label, _sig(avals, kwavals))
         with self._lock:
             n = self.notes.get(key)
             if n is None:
-                n = self.notes[key] = ProgramNote(label, fn, args, kwargs)
+                n = self.notes[key] = ProgramNote(label, fn, avals, kwavals)
             n.calls += 1
 
     def analyze(self) -> List[Dict[str, Any]]:
@@ -355,13 +357,27 @@ class Observatory:
             rec: Dict[str, Any] = {"label": label, "in_shapes": sig,
                                    "calls": n.calls}
             try:
-                rec.update(cost_of(n.fn, *_zeros(n.args),
+                rec.update(cost_of(n.fn, *_zeros(n.avals),
                                    **{k: _zeros(v)
-                                      for k, v in n.kwargs.items()}))
+                                      for k, v in n.kwavals.items()}))
             except Exception as e:      # noqa: BLE001 - reported
                 rec["error"] = repr(e)
             out.append(rec)
         return out
+
+    def site_costs(self) -> Dict[str, Dict[str, Any]]:
+        """Per site, the analyzed record that moves the most bytes (the
+        steady-state call; records with an error or no bytes skipped):
+        the join key for a site's measured latency, as the reference's
+        ``site_costs``."""
+        best: Dict[str, Dict[str, Any]] = {}
+        for rec in self.analyze():
+            if rec.get("error") or not rec.get("bytes_accessed"):
+                continue
+            cur = best.get(rec["label"])
+            if cur is None or rec["bytes_accessed"] > cur["bytes_accessed"]:
+                best[rec["label"]] = rec
+        return best
 
     @contextmanager
     def profile(self, name: str, device="cuda",
@@ -447,10 +463,11 @@ def note_site(label: str, fn: Any, *args: Any, **kwargs: Any) -> None:
 
 
 @contextmanager
-def observing():
-    """Activate a new :class:`Observatory` for the block; yields it."""
+def observing(obs: Optional[Observatory] = None):
+    """Activate `obs` (a new :class:`Observatory` when None) for the
+    block; yields it."""
     global _ACTIVE
-    o = Observatory()
+    o = obs if obs is not None else Observatory()
     with _LOCK:
         _ACTIVE = _ACTIVE + (o,)
     try:
