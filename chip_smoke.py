@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
 
-1. device: requires CUDA (exits non-zero without it), turns TF32 off for
-   matmuls and convolutions, reports the card;
+1. device: requires CUDA (exits non-zero without it), reports the card,
+   torch's version and its float32 precision settings (the script sets
+   none of them: the port's own guard, ``cplx.exact_fp32``, must hold);
 2. build: compiles every CUDA source under ziria_tpu_torch/csrc/ with
    nvcc for sm_90a, one nvcc per source, all started together;
 3. kernel_parity: every kernel against its plain PyTorch version on the
@@ -333,7 +334,21 @@ Phases, each printing one JSON line:
    launch, under a fatal plan the fallback's value with no launch and
    ``resilience.fallbacks`` at 1; a disabled chaos seam under 5 us a
    call. At most ``FUZZ_BUDGET_S``;
-18. timing: ``receive_many`` in every decode mode, the modes in turns
+18. precision: the port's float32 products under each caller setting of
+   ``PRECISION_SETTINGS`` in turn (``set_float32_matmul_precision``
+   ``"high"``, then ``"medium"``; the newer API's ``"tf32"`` on
+   ``cuda.matmul`` and ``cudnn.conv``; the legacy ``allow_tf32 =
+   True``), each undone through the API that made it: ``fft_pair`` and
+   ``ifft_pair`` of a ``PRECISION_DFT_ROWS`` x 64 batch, ``receive_many``
+   default and ``fused_demap`` on the 128 captures, one
+   ``StreamReceiver`` chunk of three frames and a ``loopback_many`` of
+   ``PRECISION_LINK_B`` frames, each bitwise equal to the same call with
+   every flag at IEEE, the caller's settings reading as set after each
+   call, and an unguarded product showing that each setting reaches
+   cuBLAS. Launches zeroed just before and read just after; the
+   guard's own cost on the host (ns an entry and exit). At most
+   ``PRECISION_BUDGET_S``;
+19. timing: ``receive_many`` in every decode mode, the modes in turns
    (batch ms, frames/s, samples/s, peak device memory); CUDA-event
    times of each step of the default and fused decode paths and of
    each mode's decode step (quantize, window cut, ACS); per-capture
@@ -346,7 +361,7 @@ Phases, each printing one JSON line:
    it can; the traceback also on the fused path's words (zero past each
    frame's stop).
 
-Phases 5-17 also print their wall seconds (``phase_s``). Then a
+Phases 5-18 also print their wall seconds (``phase_s``). Then a
 ``{"kernels": [...]}`` line, the script's wall time, the
 nvidia-smi name and power limit, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, and the script exits
@@ -572,6 +587,16 @@ SOAK_BUDGET_S = 240.0
 # families through the port's executors on the card
 FUZZ_SEEDS = 4
 FUZZ_BUDGET_S = 150.0
+# the precision phase: the caller settings it runs the port under, in
+# turn, each undone through the API that made it
+PRECISION_SETTINGS = ("matmul_high", "matmul_medium", "fp32_tf32",
+                      "allow_tf32")
+PRECISION_DFT_ROWS = 16384
+PRECISION_STREAM_RATES = (6, 24, 54)   # 20-symbol frames, one chunk
+PRECISION_LINK_B = 16
+PRECISION_LINK_BYTES = 100
+PRECISION_BUDGET_S = 30.0
+
 # float operations per depunctured slot of the fused front: x * norm,
 # |x|, up to three for the level formula, * gain, * valid, the mask
 FRONT_OPS_PER_SLOT = 8
@@ -3527,6 +3552,179 @@ def compiler_phase(rng, dev, card):
     return out, launches, checks
 
 
+def precision_flags(torch) -> dict:
+    """The caller's float32 precision settings: the per-backend
+    ``fp32_precision`` where this torch has the newer API (a read of a
+    legacy flag raises once that API has been used), else the legacy
+    flags and the matmul precision."""
+    from ziria_tpu_torch.ops import cplx
+
+    hs = cplx.precision_handles()
+    if hs is not None:
+        return {f"{b}.{op}": h.fp32_precision
+                for (b, op), h in zip(cplx.FP32_FLAGS, hs)}
+    return {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+
+
+def caller_setting(torch, name):
+    """Apply one caller precision setting (``"ieee"``: every flag at
+    IEEE, through the newer API where it exists); return (a callable
+    that reads it back through the API that made it, one that undoes
+    it through the same API)."""
+    from ziria_tpu_torch.ops import cplx
+
+    b = torch.backends
+    if name in ("matmul_high", "matmul_medium"):
+        was = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision(name.split("_")[1])
+        return (torch.get_float32_matmul_precision,
+                lambda: torch.set_float32_matmul_precision(was))
+    if name == "allow_tf32":
+        was = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = True
+
+        def undo():
+            b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = was
+        return lambda: (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32), undo
+    hs = cplx.precision_handles()
+    if hs is None:
+        check(name == "ieee", f"precision: {name} needs torch's newer API")
+        was = (b.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+        b.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+        def undo():
+            torch.set_float32_matmul_precision(was[1])
+            b.cudnn.allow_tf32 = was[0]
+        return lambda: precision_flags(torch), undo
+    if name == "fp32_tf32":
+        hs = [b.cuda.matmul, b.cudnn.conv]
+    was = [h.fp32_precision for h in hs]
+    for h in hs:
+        h.fp32_precision = "tf32" if name == "fp32_tf32" else "ieee"
+
+    def undo():
+        for h, v in zip(hs, was):
+            h.fp32_precision = v
+    return lambda: [h.fp32_precision for h in hs], undo
+
+
+def precision_phase(rng, dev, caps, card):
+    """The port's float32 products under each caller precision setting
+    of PRECISION_SETTINGS (the docstring's phase 18): each call's result
+    bitwise equal to the same call's with every flag at IEEE, the
+    caller's settings reading as set after each call, and each setting
+    shown to reach cuBLAS (an unguarded product differs). Launch counts
+    zeroed just before the phase and read just after. Returns (the
+    phase's JSON object, its launches)."""
+    import torch
+
+    from ziria_tpu_torch.backend import framebatch
+    from ziria_tpu_torch.ops import cplx, viterbi_cuda as vc, \
+        viterbi_fused as vf
+    from ziria_tpu_torch.phy import link
+    from ziria_tpu_torch.phy.wifi.params import RATE_MBPS_ORDER, RATES
+
+    t_phase = time.perf_counter()
+    p = torch.from_numpy(rng.standard_normal(
+        (PRECISION_DFT_ROWS, 64, 2), dtype=np.float32)).to(dev)
+    ct = cplx._dft_mats_t(64, False, dev)[0]
+    s_rates = list(PRECISION_STREAM_RATES)
+    stream, _starts, _truth = make_stream(
+        rng, dev, s_rates,
+        [longest_psdu(RATES[m], STREAM_DEFAULT_SYMBOLS) for m in s_rates],
+        lambda i, n: 300, STREAM_CFO, 1000)
+    l_rates = [RATE_MBPS_ORDER[k % 8] for k in range(PRECISION_LINK_B)]
+    psdus = [rng.integers(0, 256, PRECISION_LINK_BYTES).astype(np.uint8)
+             for _ in l_rates]
+
+    def rm(**knobs):
+        return lambda: framebatch.receive_many(caps, check_fcs=True,
+                                               device=dev, **knobs)
+
+    def one_chunk():
+        sr = framebatch.StreamReceiver(check_fcs=True, device=dev)
+        frames = sr.push(stream) + sr.flush()
+        return frames, sr.stats.chunks
+
+    calls = {
+        "fft_pair": lambda: cplx.fft_pair(p),
+        "ifft_pair": lambda: cplx.ifft_pair(p),
+        "receive_many": rm(),
+        "receive_many_fused": rm(fused_demap=True),
+        "stream_chunk": one_chunk,
+        "loopback_many": lambda: link.loopback_many(
+            psdus, l_rates, snr_db=LINK_SNR_DB, cfo=LINK_CFO,
+            seed=LINK_SEED, add_fcs=True, check_fcs=True, device=dev)}
+
+    def same(name, a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if name == "stream_chunk":
+            return a[1] == b[1] and same_frames(a[0], b[0])
+        return len(a) == len(b) and all(map(same_result, a, b))
+
+    torch.cuda.synchronize()
+    vc.reset_launches()
+    vf.reset_launches()
+    _read, undo = caller_setting(torch, "ieee")
+    try:
+        check(set(precision_flags(torch).values()) <= {"ieee", False,
+                                                       "highest"},
+              f"precision: not all IEEE: {precision_flags(torch)}")
+        want = {k: fn() for k, fn in calls.items()}
+        control = p[..., 0] @ ct
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    launches = {**vc.LAUNCHES, **vf.LAUNCHES}
+    check(all(launches[k] for k in ("acs", "traceback", "fused_mixed")),
+          f"precision: the path launched {launches}")
+    check(want["stream_chunk"][1] == 1 and len(want["stream_chunk"][0])
+          == len(s_rates), f"precision: one chunk, {len(s_rates)} frames: "
+          f"{want['stream_chunk'][1]}, {len(want['stream_chunk'][0])}")
+    runs = {}
+    for setting in PRECISION_SETTINGS:
+        t0 = time.perf_counter()
+        read, undo = caller_setting(torch, setting)
+        try:
+            as_set, flags = read(), precision_flags(torch)
+            check(not torch.equal(p[..., 0] @ ct, control),
+                  f"precision: {setting} does not reach cuBLAS")
+            for name, fn in calls.items():
+                check(same(name, fn(), want[name]),
+                      f"precision: {name} under {setting} differs from IEEE")
+                check(read() == as_set and precision_flags(torch) == flags,
+                      f"precision: {name} under {setting} left the "
+                      f"settings at {read()}, {precision_flags(torch)}")
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        runs[setting] = {"as_set": as_set, "fp32_precision": flags,
+                         "seconds": time.perf_counter() - t0}
+    best = float("inf")              # the guard's own host cost
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            with cplx.exact_fp32():
+                pass
+        best = min(best, (time.perf_counter() - t0) / 10000)
+    seconds = time.perf_counter() - t_phase
+    check(seconds <= PRECISION_BUDGET_S,
+          f"precision: {seconds:.1f} s, over its {PRECISION_BUDGET_S} s")
+    return {"phase": "precision", "card": card, "torch": torch.__version__,
+            "new_api": cplx.precision_handles() is not None,
+            "calls": list(calls), "dft_rows": PRECISION_DFT_ROWS,
+            "captures": len(caps), "stream_rates": s_rates,
+            "link_frames": PRECISION_LINK_B,
+            "equal": "bitwise to every flag at IEEE", "settings": runs,
+            "after": precision_flags(torch), "launches": launches,
+            "guard_ns": best * 1e9,
+            "budget_s": PRECISION_BUDGET_S}, {"precision": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=20261016)
@@ -3537,8 +3735,6 @@ def main(argv=None) -> int:
 
     # ---- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ziria_tpu_torch import cuda_build
     from ziria_tpu_torch.backend import framebatch
@@ -3557,8 +3753,7 @@ def main(argv=None) -> int:
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
-          "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
-                         "cudnn": torch.backends.cudnn.allow_tf32}})
+          "fp32_precision": precision_flags(torch)})
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -3822,7 +4017,12 @@ def main(argv=None) -> int:
     check(fuzz_s <= FUZZ_BUDGET_S,
           f"fuzz: {fuzz_s:.1f} s, over its {FUZZ_BUDGET_S} s budget")
 
-    # ---- 18. timing
+    # ---- 18. the port's products under the caller's TF32 and bf16
+    precision_line, precision_launches = precision_phase(rng, dev, caps,
+                                                         card)
+    t_ph = emit_timed(precision_line, t_ph)
+
+    # ---- 19. timing
     # receive_many in every decode mode, the modes in turns on one card
     modes = {"default": {}, "fused": {"fused_demap": True},
              "radix4": {"viterbi_radix": 4},
@@ -4132,6 +4332,8 @@ def main(argv=None) -> int:
                             if name in soak_checks else {}),
             "fuzz_launches": {fn: fl.get(name, 0)
                               for fn, fl in fuzz_launches.items()},
+            "precision_launches": {pn: pl.get(name, 0)
+                                   for pn, pl in precision_launches.items()},
             "parity": "bitwise equal to plain", **stats[name],
             "parity_max_abs_err": parity[name], "library_ms": None,
             "card": card})

@@ -815,3 +815,39 @@ def test_nccl_world_of_one(cuda):
     finally:
         multihost.shutdown_multihost()
     assert not dist.is_initialized()
+
+
+
+def test_fft_pair_on_card_ignores_the_callers_tf32(cuda):
+    """fft_pair under set_float32_matmul_precision("high") and under the
+    newer API's "tf32" is bitwise its output with TF32 off (while an
+    unguarded product moves), and the caller's settings read as set
+    after each call."""
+    from ziria_tpu_torch.ops import cplx
+
+    b = torch.backends
+    rng = np.random.default_rng(16)
+    p = torch.from_numpy(rng.standard_normal((16384, 64, 2),
+                                             dtype=np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((64, 64),
+                                             dtype=np.float32)).to(cuda)
+    ieee, control = cplx.fft_pair(p), p[..., 0] @ w
+    was = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        assert not torch.equal(p[..., 0] @ w, control)
+        assert torch.equal(cplx.fft_pair(p), ieee)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(was)
+    if cplx.precision_handles() is None:
+        return                       # a torch without the newer API
+    saved = (b.cuda.matmul.fp32_precision, b.cudnn.conv.fp32_precision)
+    try:
+        b.cuda.matmul.fp32_precision = b.cudnn.conv.fp32_precision = "tf32"
+        assert not torch.equal(p[..., 0] @ w, control)
+        assert torch.equal(cplx.fft_pair(p), ieee)
+        assert (b.cuda.matmul.fp32_precision,
+                b.cudnn.conv.fp32_precision) == ("tf32", "tf32")
+    finally:
+        b.cuda.matmul.fp32_precision, b.cudnn.conv.fp32_precision = saved

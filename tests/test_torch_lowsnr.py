@@ -25,8 +25,8 @@ SNRS_DB = (3.0, 6.0, 9.0, 25.0)
 N_BODY = 596                     # + 4 FCS bytes = 600-byte PSDUs
 
 
-@pytest.fixture(scope="module")
-def lowsnr():
+def lowsnr_corpus():
+    """The 32 captures, in order, from seed 20261017."""
     rng = np.random.default_rng(20261017)
     caps = []
     for snr in SNRS_DB:
@@ -36,6 +36,11 @@ def lowsnr():
             caps.append(_channel(rng, s, int(rng.integers(5, 200)),
                                  float(rng.uniform(-2e-3, 2e-3)), snr))
     return caps
+
+
+@pytest.fixture(scope="module")
+def lowsnr():
+    return lowsnr_corpus()
 
 
 @pytest.mark.parametrize("fused", [False], ids=["default"])

@@ -4,35 +4,106 @@ ziria_tpu/ops/cplx.py).
 Samples are ``(..., 2)`` float32 pairs, ``p[..., 0]`` real and
 ``p[..., 1]`` imaginary, as in the reference. The 64-point DFT is a
 pair of float32 matmuls against cached DFT matrices, as in the
-reference (which runs them at ``Precision.HIGHEST``): on the card
-those matmuls must not run in TF32, which :func:`exact_fp32` ensures.
+reference. Those products run in IEEE float32 whatever precision the
+caller has set for torch (:func:`exact_fp32`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from functools import lru_cache
 
 import numpy as np
 import torch
 
+#: the per-backend float32 precision settings of torch's newer API
+#: that :func:`exact_fp32` holds at ``"ieee"``: (backend, op)
+FP32_FLAGS = (("cuda", "matmul"), ("cudnn", "conv"),
+              ("mkldnn", "matmul"), ("mkldnn", "conv"))
+
+
+@lru_cache(maxsize=None)
+def precision_handles():
+    """The objects whose ``fp32_precision`` is each of
+    :data:`FP32_FLAGS`, or None where this torch has only the legacy
+    ``allow_tf32`` flags."""
+    hs = []
+    for backend, op in FP32_FLAGS:
+        h = getattr(getattr(torch.backends, backend), op, None)
+        if h is None or not hasattr(h, "fp32_precision"):
+            return None
+        hs.append(h)
+    return tuple(hs)
+
+
+def _set_ieee():
+    """Set every float32 product setting to IEEE; return the callable
+    that puts the caller's settings back. Under the newer API it reads
+    and writes only that API: once a caller has used it, a read of a
+    legacy flag (or ``torch.get_float32_matmul_precision()``) raises."""
+    hs = precision_handles()
+    if hs is not None:
+        saved = [h.fp32_precision for h in hs]
+        for h in hs:
+            h.fp32_precision = "ieee"
+
+        def restore():
+            for h, v in zip(hs, saved):
+                h.fp32_precision = v
+        return restore
+    cudnn = torch.backends.cudnn.allow_tf32
+    matmul = torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    def restore():
+        # the matmul precision sets cuBLAS's allow_tf32 with it
+        torch.set_float32_matmul_precision(matmul)
+        torch.backends.cudnn.allow_tf32 = cudnn
+    return restore
+
+
+# The settings are process-wide, and guarded work runs nested
+# (framebatch into rx) and on several threads at once (frame batching,
+# the server): the first entry saves and sets, the last exit restores.
+_guard = threading.Lock()
+_depth = 0
+_restore = None
+
 
 @contextlib.contextmanager
 def exact_fp32():
-    """Run the body with TF32 off for cuBLAS matmuls and cuDNN
-    convolutions, restoring both flags after. TF32 keeps ~3 decimal
-    digits and would move the DFT outputs far past the reference's
-    float32 agreement; the receive and transmit entry points run
-    inside this."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    cd = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Run the body with every float32 matmul and convolution in IEEE
+    float32: no TF32 on cuBLAS or cuDNN, no bf16 or TF32 in oneDNN on
+    the CPU, whatever the caller set through either of torch's APIs
+    (``torch.set_float32_matmul_precision``, the legacy ``allow_tf32``
+    flags, the per-backend ``fp32_precision``). The caller's settings
+    read the same after as before.
+
+    The contract is the port's tests': float32 agreement with the
+    reference run on the CPU (rtol = atol = 1e-5), bit for bit where
+    the reference pins bits. The reference's DFT is a plain ``@`` at
+    JAX's default precision, exact because it is held on the CPU; TF32
+    keeps ~3 decimal digits and bf16 ~2, far outside that tolerance.
+    The entry points and every float32 product site run inside this.
+
+    Safe to nest and across threads: one process-wide depth count under
+    a lock, so a thread that leaves while another is inside leaves the
+    settings at IEEE."""
+    global _depth, _restore
+    with _guard:
+        if _depth == 0:
+            _restore = _set_ieee()
+        _depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = cd
+        with _guard:
+            _depth -= 1
+            if _depth == 0:
+                restore, _restore = _restore, None
+                restore()
 
 
 def cpack(re, im):
@@ -145,11 +216,12 @@ def dft_pair(p, inverse: bool = False, axis: int = -2):
         x = torch.cat([x, x.new_zeros((pad, n, 2))])
     xr, xi = x[..., 0].contiguous(), x[..., 1].contiguous()
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    for lo in range(0, m + pad, blk):
-        a, b = xr[lo:lo + blk], xi[lo:lo + blk]
-        # W = C + iS; y = W x
-        torch.mm(a, ct, out=yr[lo:lo + blk]).sub_(b @ st)
-        torch.mm(a, st, out=yi[lo:lo + blk]).add_(b @ ct)
+    with exact_fp32():
+        for lo in range(0, m + pad, blk):
+            a, b = xr[lo:lo + blk], xi[lo:lo + blk]
+            # W = C + iS; y = W x
+            torch.mm(a, ct, out=yr[lo:lo + blk]).sub_(b @ st)
+            torch.mm(a, st, out=yi[lo:lo + blk]).add_(b @ ct)
     return torch.stack([yr[:m], yi[:m]], dim=-1).reshape(p.shape)
 
 

@@ -26,8 +26,9 @@ A combinator stage is drawn as a *spec* (plain data), which
 the tests hold their text to the reference's for every seed.
 
 :func:`run_case` runs one case through every executor of the port that
-the reference harness runs it through, on one device (mesh axes over
-entries of that device), and :func:`mismatches` holds the outputs to a
+the reference harness runs it through, on one device (``cuda`` unless
+the caller passes another, as at every entry point of the port; mesh
+axes over entries of that device), and :func:`mismatches` holds the outputs to a
 reference output: the interpreter's and the chunk-machine executors'
 exactly (``terminated_by`` too), the jit backend's as a prefix of it
 (the jit tail policy drops sub-iteration remainders at the end of the
@@ -489,7 +490,7 @@ def _lower_pp(specs, width, device):
                                 width=width, in_item=((), np.int32))
 
 
-def case_of(family: str, seed: int, device="cpu"):
+def case_of(family: str, seed: int, device="cuda"):
     """The case (program and inputs) of `family` at `seed`; a ``pp`` case
     lowers its stage pipeline on `device` to draw its lengths."""
     if family in ZIR_CASES:
@@ -506,7 +507,7 @@ def case_of(family: str, seed: int, device="cpu"):
     raise ValueError(f"unknown fuzz family {family!r}")
 
 
-def run_case(family: str, case, device="cpu",
+def run_case(family: str, case, device="cuda",
              n_entries: int = 8) -> Dict[str, Any]:
     """Every executor of the port that the reference harness runs the
     case through, on `device` (mesh axes over `n_entries` entries of
